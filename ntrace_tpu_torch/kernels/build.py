@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels with nvcc and bind them with ctypes.
 
-Every `csrc/*.cu` file is compiled by hand-driven `nvcc` into one shared
-library with a plain C interface (no PyTorch headers, so a build takes
-seconds, not the minutes of `torch.utils.cpp_extension.load`). The library
+Every `csrc/*.cu` file is compiled by its own `nvcc`, all started together,
+and the objects are linked into one shared library with a plain C interface
+(no PyTorch headers, so a build takes seconds, not the minutes of
+`torch.utils.cpp_extension.load`). The library
 lands in `ntrace_tpu_torch/_build/` under a name keyed by a hash of the
 sources and flags, is built at first use, and is reused while the sources
 are unchanged. A failed build or load raises: there is no fallback.
@@ -27,10 +28,9 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    *ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",   # registers / local memory per kernel, into the log
 )
 
@@ -42,6 +42,14 @@ SIGNATURES = {
     "ntrace_packet_trace": (
         ctypes.c_int,
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    ),
+    "ntrace_dense_walk": (
+        ctypes.c_int,
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    ),
+    "ntrace_dense_dma": (
+        ctypes.c_int,
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     ),
 }
 
@@ -77,22 +85,48 @@ def library_path() -> Path:
     return BUILD_DIR / f"libntrace_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> list[tuple[int, str]]:
+    """Run the commands at once; (return code, output) of each. Every
+    process is ended before this returns, on error too."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+        return [(p.returncode, out) for p, out in zip(procs, outs)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+
+
 def build() -> Build:
     """Compile csrc/*.cu unless the hashed library exists; raises on failure."""
     path = library_path()
     if path.exists():
         return Build(path, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    stem = f"{path.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{stem}.{src.stem}.o" for src in sources()]
+    tmp = path.with_name(f"{stem}.tmp.so")
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, path)
+    try:
+        done = _run_all([[nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                         for s, o in zip(sources(), objs)])
+        log = "".join(out for _, out in done)
+        if all(rc == 0 for rc, _ in done):
+            done = _run_all([[nvcc(), *ARCH, "-shared", "-o", str(tmp),
+                              *map(str, objs)]])
+            log += done[0][1]
+        seconds = time.perf_counter() - t0
+        bad = [rc for rc, _ in done if rc != 0]
+        if bad:
+            raise RuntimeError(f"nvcc failed ({bad[0]}):\n{log}")
+        os.replace(tmp, path)
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
     return Build(path, seconds, log)
 
 

@@ -4,20 +4,28 @@ Counterpart of the primary-frame slice of ntrace_tpu/render/renderer.py:
 `build_accel` (165-197), `normal_color` (200-210), `_trace_batched`
 (337-364), the engine resolution of `Renderer.__init__` (440-515, 597-664,
 689-698), `trace_primary` (1136-1188, the seed_primary="off" path),
-`_cap` (1203-1208) and `render(mode="primary")` (1256-1394).
+`_cap` (1203-1208) and `render(mode="primary")` (1256-1394), and the dense
+screen-space primary engine: `prepare_primary` (924-930, 966-1027),
+`_dense_prep`, `freeze_primary_structure`, `_trace_binraster_dense`
+(1029-1109) and `_binraster_contract_ok` (1190-1201).
 
 Every engine name that resolves to the packet BVH kernel ("auto",
 "wavefront", "packet") traces through `trace/packet.py`: the CUDA kernel on
 a CUDA device, its torch twin on the CPU. "cpu_golden" runs the host golden
-tracer. The port reads no tuned.json (its entries were measured on a TPU)
-and keeps one packed table on the device: there is no forest. Other modes,
-engines, builders and seed_primary settings raise NotImplementedError and
-name the ROADMAP item that ports them.
+tracer. engine="binraster_dense" arms the dense engine
+(`trace/binraster_dense.py`) for canonical primary frames and keeps the
+packet kernel for every other ray. The port reads no tuned.json (its
+entries were measured on a TPU): the dense engine's settings are the
+reference renderer's code defaults (the DENSE_* constants), and "auto"
+means the packet kernel alone. There is one packed table on the device, no
+forest. Other modes, engines, builders and seed_primary settings raise
+NotImplementedError and name the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
 
 import sys
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -31,10 +39,22 @@ from ntrace_tpu_torch.ray import raygen
 from ntrace_tpu_torch.ray.pixeltable import pixel_table
 from ntrace_tpu_torch.ray.raybatch import RayBatch, unsort
 from ntrace_tpu_torch.tables import tables_from_packed
+from ntrace_tpu_torch.trace import binraster_dense as bd
 from ntrace_tpu_torch.trace.packet import trace_packet
 from ntrace_tpu_torch.utils.timing import StageTimer
 
 PACKET_ENGINES = ("auto", "wavefront", "packet")
+# The dense engine's settings: the reference renderer's code defaults for
+# what it reads from tuned.json (br2_tile, br2_kcap, br2_ez,
+# br2_max_pairs). The prep is always v5.
+DENSE_TILE = 16              # bin edge in pixels
+DENSE_K_CAP = 64             # a triangle over more bins: the global tier
+DENSE_EZ_CHUNK = 0           # early-z off
+DENSE_MAX_PAIRS = 2_000_000  # pair budget; above it the BVH path serves
+# Scenes above this many triangles never arm the dense engine (the
+# reference's NTRACE_BINRASTER_MAX_TRIS default): its sorts and tables
+# scale with them.
+DENSE_MAX_TRIS = 3_000_000
 
 
 @dataclass
@@ -108,22 +128,38 @@ def _trace_batched(tracer, batch: RayBatch, cap: int, any_hit: bool):
 class Renderer:
     def __init__(self, scene: Scene, build_cfg: BuildConfig = BuildConfig(),
                  cfg: RenderConfig = RenderConfig(),
-                 flat: FlatBVH | None = None, *, device):
+                 flat: FlatBVH | None = None, *, device,
+                 dense_kernel: str = "walk"):
+        """dense_kernel: "walk" or "dma", the dense engine's kernel (the
+        reference's br2_kernel); both give bit-identical frames."""
         self.scene = scene
         self.cfg = cfg
         self.device = torch.device(device)
+        self.dense_kernel = dense_kernel
         if cfg.seed_primary != "off":
             raise NotImplementedError(
                 f"seed_primary={cfg.seed_primary!r} is not ported yet "
                 "(ROADMAP queue 1, item 6: the seeded primary trace)")
-        if cfg.engine in PACKET_ENGINES:
+        # The screen-space engine serves canonical primary rays only; the
+        # main engine, the packet kernel, serves everything else.
+        self.primary_engine = None
+        self._br = None                   # armed by prepare_primary()
+        engine = cfg.engine
+        if engine == "binraster_dense":
+            if dense_kernel not in bd.KERNELS:
+                raise NotImplementedError(
+                    f"dense kernel {dense_kernel!r} is not ported yet "
+                    "(ROADMAP queue 2, item 12: the visit-list kernel)")
+            self.primary_engine = engine
+            engine = "auto"
+        if engine in PACKET_ENGINES:
             self.engine = "packet"
-        elif cfg.engine == "cpu_golden":
+        elif engine == "cpu_golden":
             self.engine = "cpu_golden"
-        elif cfg.engine in ("binraster", "binraster_dense"):
+        elif engine == "binraster":
             raise NotImplementedError(
-                f"engine {cfg.engine!r} is not ported yet (ROADMAP queue 1, "
-                "item 7: the dense primary engine)")
+                "engine 'binraster' is not ported yet (ROADMAP queue 2: the "
+                "v1 screen-space engine, binraster_prep_fast and its kernel)")
         else:
             raise NotImplementedError(
                 f"engine {cfg.engine!r} is not ported yet (ROADMAP queue 1, "
@@ -149,11 +185,136 @@ class Renderer:
         self._tracer = tracer
         self.geom_normals = torch.from_numpy(
             scene.geometric_normals()).to(self.device)
+        if self.primary_engine is not None:
+            if scene.num_tris > DENSE_MAX_TRIS:
+                self.primary_engine = None   # sorts and tables blow up
+            else:
+                self._br_verts = torch.from_numpy(
+                    np.ascontiguousarray(scene.tri_verts(),
+                                         dtype=np.float32)).to(self.device)
 
-    def trace_primary(self, orig, dirn, tmin, tmax):
-        """Primary-ray closest-hit trace (the seed_primary="off" path)."""
+    def prepare_primary(self, cam: dict, width: int, height: int) -> bool:
+        """Arm the dense engine for (cam, W, H): one count pass picks the
+        static sizes. Returns True when armed; False leaves the frame to
+        the BVH path (no dense engine, a frame that does not tile, or a
+        pair budget the camera would exceed)."""
+        self._br = None
+        if self.primary_engine != "binraster_dense":
+            return False
+        if width % DENSE_TILE or height % DENSE_TILE:
+            return False
+        txn, tyn = width // DENSE_TILE, height // DENSE_TILE
+        try:
+            mcodes = bd.bin_mcodes(txn, tyn, 31 - bd.Z_BITS)
+        except ValueError:
+            return False      # bin grid exceeds the fused key's bin bits
+        kw = dict(width=width, height=height, tile=DENSE_TILE)
+        total, n_mid, n_g = (int(x) for x in bd.count_pairs_dense(
+            self._br_verts, cam, k_slots=DENSE_K_CAP, k2_slots=DENSE_K_CAP,
+            **kw))
+        if total + n_mid > DENSE_MAX_PAIRS:
+            return False
+        _, hist, _ = bd.count_hist_dense(self._br_verts, cam,
+                                         k_cap=DENSE_K_CAP, **kw)
+        n_ks = bd.pick_nks(hist.cpu().numpy())
+        p_max = bd.pick_cap(sum(n_ks), 16 * bd.TPT)
+        # The reference gates only on the exact count (ADVICE r5,
+        # renderer.py:1009), but p_max, over the quantised slices, is what
+        # every prep op and the tile table scale with.
+        if p_max > DENSE_MAX_PAIRS:
+            return False
+        self._br = {
+            "width": width, "height": height, "nb": txn * tyn,
+            "ray_rows": DENSE_TILE * DENSE_TILE // 128, "p_max": p_max,
+            "n_ks": n_ks,
+            "g2_max": bd.pick_cap(n_g, bd.TPT, pad=bd.TPT) if n_g else 0,
+            "mcodes": torch.from_numpy(mcodes).to(self.device),
+            "cam_pos": cam["pos"].clone(),
+        }
+        return True
+
+    def _dense_prep(self, cam):
+        """The armed prep v5: (rows, row0, row1, g_r1, ok)."""
+        c = self._br
+        return bd.binraster_prep_dense5(
+            self._br_verts, cam, c["mcodes"], width=c["width"],
+            height=c["height"], tile=DENSE_TILE, k_cap=DENSE_K_CAP,
+            p_max=c["p_max"], n_ks=c["n_ks"], g2_max=c["g2_max"],
+            z_bits=bd.Z_BITS)
+
+    def freeze_primary_structure(self, cam: dict) -> float:
+        """Build the dense engine's screen-space structure once and keep it
+        for later trace_primary calls with this very camera (the analogue
+        of a prebuilt BVH). Needs a prior successful prepare_primary.
+        Returns the build's wall seconds."""
+        t0 = time.perf_counter()
+        out = self._dense_prep(cam)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._br["frozen"] = out
+        self._br["frozen_cam"] = {k: v.clone() for k, v in cam.items()}
+        return time.perf_counter() - t0
+
+    def _frozen_structure(self, cam):
+        """The frozen structure when it was built for exactly `cam`, else
+        None: a camera rotated in place passes the ray contract but would
+        trace stale bins."""
+        fc = self._br.get("frozen_cam")
+        if fc is None or fc.keys() != cam.keys():
+            return None
+        if all(torch.equal(cam[k], fc[k]) for k in fc):
+            return self._br["frozen"]
+        return None
+
+    def _trace_binraster_dense(self, dirn, tmin, tmax, cam):
+        c = self._br
+        frozen = self._frozen_structure(cam)
+        rows, r0, r1, g1, ok = (frozen if frozen is not None
+                                else self._dense_prep(cam))
+        dirs, scalars = bd.dense_rays(dirn, cam["pos"], tmin[0], tmax[0],
+                                      c["nb"], c["ray_rows"])
+        kw = dict(n_bins=c["nb"], ray_rows=c["ray_rows"])
+        if self.dense_kernel == "dma":
+            tri, t, u, v = bd.trace_dense_rows_dma(rows, r0, r1, dirs,
+                                                   scalars, g1, **kw)
+        else:
+            tri, t, u, v = bd.trace_dense_rows(rows, r0, r1, dirs, scalars,
+                                               g1, ez_chunk=DENSE_EZ_CHUNK,
+                                               **kw)
+        # A static size that was too small poisons every hit: loud.
+        return torch.where(ok, tri, -2), t, u, v
+
+    def trace_primary(self, orig, dirn, tmin, tmax, cam=None,
+                      canonical=None):
+        """Primary-ray closest-hit trace (the seed_primary="off" path).
+
+        cam: camera_arrays dict; with the dense engine armed, canonical
+        primary rays (orig == cam pos, uniform tmin == znear, uniform
+        tmax, the full W*H frame) go to it, everything else to the BVH
+        path. canonical: None checks the contract; True asserts it and
+        raises ValueError when the rays break it; False forces the BVH
+        path."""
+        armed = cam is not None and self._br is not None
+        if canonical is True and armed and not self._binraster_contract_ok(
+                orig, tmin, tmax, cam):
+            raise ValueError(
+                "trace_primary(canonical=True): rays violate the bin-raster "
+                "contract (orig == cam pos, uniform tmin == znear, uniform "
+                "tmax); rebuild the batch with raygen.primary(cam) or pass "
+                "canonical=False")
+        if (armed and canonical is not False
+                and dirn.shape[0] == self._br["width"] * self._br["height"]
+                and (canonical is True
+                     or self._binraster_contract_ok(orig, tmin, tmax, cam))):
+            return self._trace_binraster_dense(dirn, tmin, tmax, cam)
         return _trace_batched(self._tracer, RayBatch(orig, dirn, tmin, tmax),
                               self._cap(), False)
+
+    def _binraster_contract_ok(self, orig, tmin, tmax, cam) -> bool:
+        """Uniform tmin == znear, uniform tmax, every origin at the armed
+        camera position."""
+        return bool(((tmin == cam["znear"]) & (tmax == tmax[0])
+                     & (orig == self._br["cam_pos"]).all(dim=-1)).all())
 
     def _cap(self) -> int:
         """Per-dispatch ray cap."""
@@ -172,9 +333,14 @@ class Renderer:
         with timer.stage("raygen"):
             batch = raygen.primary(
                 cam, W, H, torch.from_numpy(order.copy()).to(self.device))
+        with timer.stage("prepare_primary"):
+            self.prepare_primary(cam, W, H)
         with timer.stage("trace_primary"):
+            # raygen.primary(cam) built the batch: canonical by
+            # construction.
             tri, t, _, _ = self.trace_primary(batch.orig, batch.dirn,
-                                              batch.tmin, batch.tmax)
+                                              batch.tmin, batch.tmax,
+                                              cam=cam, canonical=True)
         timer.count("rays_primary", batch.num_rays)
         with timer.stage("shade"):
             color = normal_color(self.geom_normals, tri)

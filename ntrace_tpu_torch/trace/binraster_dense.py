@@ -1,0 +1,496 @@
+"""The dense screen-space primary engine: torch prep v5 and two CUDA kernels.
+
+Counterpart of ntrace_tpu/trace/binraster_dense.py. Canonical primary rays
+(every origin at the camera, one tmin, one tmax) are traced by screen bins
+of tile x tile pixels instead of by BVH traversal:
+
+1. The count passes (`count_pairs_dense`, `count_hist_dense`) bin every
+   triangle (`trace/binraster.py:_counts`) and size the static buffers.
+2. `binraster_prep_dense5` emits one (bin, triangle) pair per covered bin,
+   sorts the pairs by (bin Morton code << 12 | truncated z) and packs them
+   into (8, 128) float tiles of 88 triangles, lanes 11g..11g+10 of each
+   sublane holding [v0 e1 e2 tid zmin] of group g. Triangles that cover
+   more than `k_cap` bins go to a z-sorted global tier that every bin
+   walks first. `row0`/`row1` give each bin's tile range.
+3. A kernel tests each bin's rays against the global tier and its tile
+   range with Moller-Trumbore and keeps the lexicographic (t, id) minimum:
+   `trace_dense_rows` (csrc/dense_trace.cu, dense_walk, with optional
+   early-z) or `trace_dense_rows_dma` (dense_dma: the same walk, tiles
+   double-buffered through cp.async). Both are bit-identical.
+
+Bins only cull, so the result is the closest hit with the lowest triangle
+id on a tie, exactly as the BVH engines give it. A prep whose static sizes
+turn out too small reports `ok` False, and `trace_dense_primary` then
+poisons every hit with -2: loud, never silently wrong.
+
+A CUDA tensor launches the kernel; a CPU tensor runs the plain torch
+version `trace_dense_rows_ref`. Only prep v5 is ported: v2, v3 and v4 were
+superseded on the TPU (ROADMAP queue 1, item 7). The visit-list kernel
+(`kernel="visits"`) waits for ROADMAP queue 2, item 12.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ntrace_tpu_torch.device import uses_kernel
+from ntrace_tpu_torch.host import morton2d
+from ntrace_tpu_torch.ops.morton import part1by1
+from ntrace_tpu_torch.trace.binraster import INF, Z_MARGIN, _counts
+
+GPT = 8          # tris per group (sublanes)
+GROUPS = 11      # groups per (8, 128) tile
+TPT = GPT * GROUPS   # 88 tris per tile
+CPL = 11         # lanes per group: v0(3) e1(3) e2(3) tid zmin
+SENT = 0x7FFFFFFF    # sort key of an empty slot
+Z_BITS = 12          # low key bits holding truncated z; bins get the rest
+KERNELS = ("walk", "dma")
+# Pair-test elements per chunk of the plain version (visits x rays x 88).
+REF_CHUNK = 1 << 23
+
+
+def bin_mcodes(txn: int, tyn: int, max_bits: int) -> np.ndarray:
+    """Sorted 2D Morton codes of all bins (bin slot = Morton block rank)."""
+    bx, by = np.meshgrid(np.arange(txn), np.arange(tyn))
+    mc = np.sort(morton2d(np, bx.ravel(), by.ravel()))
+    if mc[-1] >= 1 << max_bits:
+        raise ValueError("bin grid exceeds the fused sort key's bin bits")
+    return mc.astype(np.int32)
+
+
+def pick_cap(total: int, quantum: int, slack: float = 1.05,
+             pad: int = 1024) -> int:
+    """Near-exact static capacity: ceil(total * slack + pad) to quantum."""
+    cap = int(total * slack) + pad
+    cap += (-cap) % quantum
+    return max(cap, quantum)
+
+
+def pick_nks(cnt_hist, quantum: int = 2048, slack: float = 1.05,
+             pad: int = 64):
+    """Slice lengths for prep v5 from the count pass.
+
+    cnt_hist[k] = #{triangles with cnt > k}, k < k_cap (descending). Each
+    length is quantised up with slack and pad; trailing zero slices are
+    dropped.
+    """
+    n_ks = []
+    for nk in np.asarray(cnt_hist).tolist():
+        if nk == 0:
+            break
+        q = int(nk * slack) + pad
+        q += (-q) % quantum
+        n_ks.append(q)
+    return tuple(n_ks)
+
+
+def count_pairs_dense(verts, cam, *, width, height, tile, k_slots,
+                      k2_slots=64):
+    """(sorted-tier pairs incl. mid tier, mid-tier tris, global tris)."""
+    *_, cnt, _ = _counts(verts, cam, width=width, height=height, tile=tile)
+    over = cnt > k_slots
+    over2 = cnt > k2_slots
+    return (torch.where(over2, 0, cnt).sum(), (over & ~over2).sum(),
+            over2.sum())
+
+
+def count_hist_dense(verts, cam, *, width, height, tile, k_cap=64):
+    """(total pairs, N_k histogram (k_cap,), global-tier count), where
+    N_k = #{included tris with cnt > k}."""
+    *_, cnt, _ = _counts(verts, cam, width=width, height=height, tile=tile)
+    over2 = cnt > k_cap
+    cntc = torch.where(over2 | (cnt <= 0), 0, cnt)
+    ks = torch.arange(k_cap, dtype=torch.int32, device=cnt.device)
+    hist = (cntc[:, None] > ks[None, :]).sum(dim=0)
+    return cntc.sum(), hist, over2.sum()
+
+
+def _pack_dense(lanes: torch.Tensor, zdec: torch.Tensor, p_cap: int):
+    """(p_cap, 10) lanes + (p_cap,) zmin -> (p_cap // 88 * 8, 128) tiles.
+
+    Pair p lands in tile p // 88, sublane (p % 88) // 11, group p % 11: a
+    plain reshape of the (p, 11) columns.
+    """
+    nt = p_cap // TPT
+    cols = torch.cat([lanes, zdec[:, None]], dim=1)
+    out = torch.zeros((nt * GPT, 128), dtype=torch.float32,
+                      device=lanes.device)
+    out[:, :GROUPS * CPL] = cols.reshape(nt * GPT, GROUPS * CPL)
+    return out
+
+
+def _vert_channels(verts: torch.Tensor) -> torch.Tensor:
+    """(n, 9) float32 [v0 e1 e2] with e1 = v1 - v0, e2 = v2 - v0."""
+    v0 = verts[:, 0]
+    return torch.cat([v0, verts[:, 1] - v0, verts[:, 2] - v0], dim=1)
+
+
+def _pad_rows(a: torch.Tensor, n: int, fill) -> torch.Tensor:
+    """a with rows appended (value `fill`) up to n rows."""
+    if a.shape[0] >= n:
+        return a
+    pad = torch.full((n - a.shape[0],) + tuple(a.shape[1:]), fill,
+                     dtype=a.dtype, device=a.device)
+    return torch.cat([a, pad])
+
+
+def binraster_prep_dense5(verts, cam, mcodes, *, width, height, tile,
+                          p_max, n_ks, k_cap=64, g2_max=0, z_bits=12):
+    """Prep v5: zero-gather pair emission by prefix slices of a
+    cnt-descending triangle sort, then one pair-level key sort.
+
+    verts (n, 3, 3) f32; cam: camera_arrays dict; mcodes (nb,) i32 from
+    `bin_mcodes`; n_ks from `pick_nks`; p_max >= sum(n_ks), a multiple of
+    88. Returns (rows (g2_max//88*8 + p_max//88*8, 128) f32, row0, row1
+    (nb,) i32 tile ranges, g_r1 (1,) i32 global-tier tiles or None when
+    g2_max is 0, ok 0-d bool).
+    """
+    binraster_prep_dense5.calls += 1
+    dev = verts.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    n = verts.shape[0]
+    zshift = 32 - z_bits
+    zmask = (1 << z_bits) - 1
+    tx0, tx1, ty0, ty1, cnt, zmin = _counts(
+        verts, cam, width=width, height=height, tile=tile)
+    wbin = tx1 - tx0 + 1
+    zsafe = torch.clamp_min(zmin * float(np.float32(1.0) - Z_MARGIN), 0.0)
+    zb = (zsafe.view(torch.int32) >> zshift) & zmask
+    over2 = cnt > k_cap
+    incl = ~over2 & (cnt > 0)
+    cntc = torch.where(incl, cnt, 0)
+    total = cntc.sum()
+
+    # 1. cnt-descending triangle sort (stable, as lax.sort), with all 13
+    #    per-triangle channels moved by the permutation.
+    skey = torch.where(incl, -cnt, SENT)
+    chans = torch.cat([
+        _vert_channels(verts).view(torch.int32),
+        torch.arange(n, **i32)[:, None],                    # tid
+        (tx0 | (ty0 << 10) | (wbin << 20))[:, None],        # packed rect
+        zb[:, None], cntc[:, None]], dim=1)
+    tri_tbl = chans[torch.sort(skey, stable=True).indices]  # (n, 13)
+
+    # 2. Prefix-slice emission: slice k is the first n_ks[k] rows, which
+    #    hold every triangle covering more than k bins.
+    if n_ks:
+        tri_tbl = _pad_rows(tri_tbl, max(n_ks), 0)          # cnt 0: masked
+        pairs = torch.cat([tri_tbl[:nk] for nk in n_ks])
+        kcol = torch.cat([torch.full((nk,), k, **i32)
+                          for k, nk in enumerate(n_ks)])
+    else:   # nothing visible: every slot pads to SENT below
+        pairs = torch.zeros((0, 13), **i32)
+        kcol = torch.zeros((0,), **i32)
+    caps_ok = pairs.shape[0] <= p_max   # a truncation would drop pairs
+    pairs = _pad_rows(pairs, p_max, 0)[:p_max]
+    kcol = _pad_rows(kcol, p_max, 0)[:p_max]
+
+    valid = kcol < pairs[:, 12]
+    ch1 = pairs[:, 10]
+    tx0p, ty0p = ch1 & 1023, (ch1 >> 10) & 1023
+    wp = torch.clamp_min((ch1 >> 20) & 2047, 1)
+    bx = tx0p + kcol % wp
+    by = ty0p + torch.div(kcol, wp, rounding_mode="floor")
+    mc = (part1by1(by) << 1) | part1by1(bx)
+    key = torch.where(valid, ((mc << z_bits) | pairs[:, 11]).to(torch.int32),
+                      SENT)
+
+    # 3. Pair-level key sort (stable) carrying the payload.
+    skey2, perm = torch.sort(key, stable=True)
+    pay = pairs[perm]
+    svalid = skey2 != SENT
+    lanes = torch.cat([
+        pay[:, :9].view(torch.float32),
+        torch.where(svalid, pay[:, 9], -1).to(torch.float32)[:, None]],
+        dim=1)
+    zdec = ((skey2 & zmask) << zshift).view(torch.float32)
+    zdec = torch.where(svalid, zdec, torch.tensor(INF, device=dev))
+    rows_b = _pack_dense(lanes, zdec, p_max)
+
+    # Tile ranges per bin: first tile whose max reaches the bin, first
+    # tile whose min passes it. Straddle tiles hold neighbours' pairs or
+    # tid -1 pad: extra exact tests, never a different closest hit.
+    gt = (skey2 >> z_bits).reshape(p_max // TPT, TPT)
+    row0 = torch.searchsorted(gt[:, TPT - 1].contiguous(), mcodes)
+    row1 = torch.searchsorted(gt[:, 0].contiguous(), mcodes, right=True)
+    row0, row1 = row0.to(torch.int32), row1.to(torch.int32)
+
+    # ok: every pair emitted (slice k covered all cnt > k triangles) and
+    # every static size held.
+    ks = torch.arange(len(n_ks), **i32)
+    nk_true = (cntc[:, None] > ks[None, :]).sum(dim=0)
+    nk_static = torch.tensor(list(n_ks), dtype=torch.int64, device=dev)
+    n_over2 = over2.sum()
+    ok = ((total <= p_max) & (nk_true <= nk_static).all()
+          & (cntc.max() <= len(n_ks)) & caps_ok & (n_over2 <= g2_max))
+    if g2_max == 0:
+        return rows_b, row0, row1, None, ok
+
+    # Walked global tier, z-ascending.
+    okey2 = torch.where(over2, zb, SENT)
+    sok2, g2i = torch.sort(okey2, stable=True)
+    g2k = _pad_rows(sok2, g2_max, SENT)[:g2_max]
+    g2i = _pad_rows(g2i, g2_max, 0)[:g2_max]
+    g2valid = g2k != SENT
+    glanes = torch.cat([
+        _vert_channels(verts[g2i]),
+        torch.where(g2valid, g2i, -1).to(torch.float32)[:, None]], dim=1)
+    gzdec = (g2k << zshift).view(torch.float32)
+    gzdec = torch.where(g2valid, gzdec, torch.tensor(INF, device=dev))
+    grows = _pack_dense(glanes, gzdec, g2_max)
+    g_r1 = torch.div(torch.clamp_max(n_over2, g2_max) + TPT - 1, TPT,
+                     rounding_mode="floor").reshape(1).to(torch.int32)
+    gnt = g2_max // TPT
+    rows = torch.cat([grows, rows_b])
+    return rows, row0 + gnt, row1 + gnt, g_r1, ok
+
+
+binraster_prep_dense5.calls = 0   # preps run since the last reset
+
+
+def dense_rays(dirn, pos, tmin, tmax, n_bins: int, ray_rows: int):
+    """Kernel ray operands: dirs (3 * n_bins * ray_rows, 128) f32, the
+    components stacked (all x, then y, then z, in slot order), and scalars
+    (8,) f32 [ox, oy, oz, tmin, tmax, 0, 0, 0]. tmin, tmax: 0-d."""
+    dirs = dirn.t().reshape(3 * n_bins * ray_rows, 128)
+    zero = torch.zeros((), dtype=torch.float32, device=dirn.device)
+    scalars = torch.cat([pos.to(torch.float32),
+                         torch.stack([tmin, tmax, zero, zero, zero])])
+    return dirs, scalars
+
+
+def _check(rows, row0, row1, dirs, scalars, g_r1, n_bins, ray_rows):
+    nrd = n_bins * ray_rows
+    want = [("rows", rows, torch.float32, None),
+            ("row0", row0, torch.int32, (n_bins,)),
+            ("row1", row1, torch.int32, (n_bins,)),
+            ("dirs", dirs, torch.float32, (3 * nrd, 128)),
+            ("scalars", scalars, torch.float32, (8,))]
+    if g_r1 is not None:
+        want.append(("g_r1", g_r1, torch.int32, (1,)))
+    for name, a, dtype, shape in want:
+        if a.dtype != dtype:
+            raise TypeError(f"{name}: dtype {a.dtype}, want {dtype}")
+        if shape is not None and tuple(a.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(a.shape)}, want {shape}")
+        if a.device != rows.device:
+            raise ValueError(f"{name} on {a.device}, rows on {rows.device}")
+    if (rows.dim() != 2 or rows.shape[1] != 128 or rows.shape[0] % GPT
+            or rows.shape[0] == 0):
+        raise ValueError(f"rows: shape {tuple(rows.shape)}, want "
+                         "(n_tiles * 8, 128) with n_tiles >= 1")
+    if n_bins < 1 or ray_rows < 1:
+        raise ValueError("n_bins and ray_rows must be >= 1")
+
+
+def _run(entry: str, rows, row0, row1, dirs, scalars, g_r1, n_bins,
+         ray_rows, extra):
+    """Allocate the outputs and launch one C entry point of
+    dense_trace.cu on the current stream. Returns (tri, t, u, v)."""
+    from ntrace_tpu_torch.kernels.build import library
+
+    r = n_bins * ray_rows * 128
+    dev = rows.device
+    outs = (torch.empty((r,), dtype=torch.int32, device=dev),
+            torch.empty((r,), dtype=torch.float32, device=dev),
+            torch.empty((r,), dtype=torch.float32, device=dev),
+            torch.empty((r,), dtype=torch.float32, device=dev))
+    args = [a.contiguous() for a in (rows, row0, row1, dirs, scalars)]
+    if args[0].data_ptr() % 16:
+        raise ValueError("rows must be 16-byte aligned (tiles load as "
+                         "float4)")
+    g = None if g_r1 is None else g_r1.contiguous()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(library(), entry)(
+            args[0].data_ptr(), args[1].data_ptr(), args[2].data_ptr(),
+            None if g is None else g.data_ptr(), args[3].data_ptr(),
+            args[4].data_ptr(), n_bins, ray_rows,
+            rows.shape[0] // GPT, *extra, *(o.data_ptr() for o in outs),
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
+    return outs
+
+
+def trace_dense_rows(rows, row0, row1, dirs, scalars, g_r1=None, *,
+                     n_bins: int, ray_rows: int, ez_chunk: int = 4):
+    """Trace prepped dense tiles (the walk kernel). dirs and scalars as
+    `dense_rays` makes them. Returns (tri, t, u, v), each
+    (n_bins * ray_rows * 128,), in slot order; tri -1, t = tmax,
+    u = v = 0 on a miss. ez_chunk > 0 turns on early-z: after every
+    ez_chunk tiles a bin stops when the next tile's zmin exceeds every
+    ray's hit t. That skips only tiles that cannot change a result."""
+    _check(rows, row0, row1, dirs, scalars, g_r1, n_bins, ray_rows)
+    if ez_chunk < 0:
+        raise ValueError(f"ez_chunk {ez_chunk} < 0")
+    if not uses_kernel(rows):
+        return trace_dense_rows_ref(rows, row0, row1, dirs, scalars, g_r1,
+                                    n_bins=n_bins, ray_rows=ray_rows,
+                                    ez_chunk=ez_chunk)
+    outs = _run("ntrace_dense_walk", rows, row0, row1, dirs, scalars, g_r1,
+                n_bins, ray_rows, (ez_chunk,))
+    trace_dense_rows.launches += 1
+    return outs
+
+
+trace_dense_rows.launches = 0   # kernel launches since the last reset
+
+
+def trace_dense_rows_dma(rows, row0, row1, dirs, scalars, g_r1=None, *,
+                         n_bins: int, ray_rows: int):
+    """`trace_dense_rows` without early-z, with the tiles double-buffered
+    through cp.async (the dma kernel). Bit-identical results."""
+    _check(rows, row0, row1, dirs, scalars, g_r1, n_bins, ray_rows)
+    if not uses_kernel(rows):
+        return trace_dense_rows_ref(rows, row0, row1, dirs, scalars, g_r1,
+                                    n_bins=n_bins, ray_rows=ray_rows)
+    outs = _run("ntrace_dense_dma", rows, row0, row1, dirs, scalars, g_r1,
+                n_bins, ray_rows, ())
+    trace_dense_rows_dma.launches += 1
+    return outs
+
+
+trace_dense_rows_dma.launches = 0   # kernel launches since the last reset
+
+
+def _visits(row0, row1, g: int, n_bins: int):
+    """Every (bin, tile) visit of the kernels' walk: the global prefix
+    tiles [0, g), then the bin's tiles [row0, row1). Returns (bin, tile)
+    int64 (V,)."""
+    span = (row1 - row0).clamp_min(0).to(torch.int64)
+    per_bin = span + g
+    vbin = torch.repeat_interleave(
+        torch.arange(n_bins, device=row0.device), per_bin)
+    start = torch.cumsum(per_bin, 0) - per_bin
+    j = torch.arange(vbin.numel(), device=row0.device) - start[vbin]
+    vtile = torch.where(j < g, j, row0.to(torch.int64)[vbin] + j - g)
+    return vbin, vtile
+
+
+def trace_dense_rows_ref(rows, row0, row1, dirs, scalars, g_r1=None, *,
+                         n_bins: int, ray_rows: int, ez_chunk: int = 0):
+    """Plain torch version of both kernels, on any device.
+
+    It enumerates every (bin, tile) visit, runs Moller-Trumbore in chunks
+    over visits x rays x 88 triangles with the kernels' op order, and
+    reduces each ray by the lexicographic (t, id) minimum over the
+    candidates with t < tmax (the kernels' accumulator starts at
+    (tmax, -1)). Since every accepted t > tmin >= 0, the key
+    (t bits << 32) | id orders like (t, id), and `scatter_reduce("amin")`
+    is exact. Early-z skips only tiles that cannot change a result, so this
+    version walks every tile whatever `ez_chunk` says: a kernel with
+    early-z on must still equal it bit for bit.
+    """
+    _check(rows, row0, row1, dirs, scalars, g_r1, n_bins, ray_rows)
+    if ez_chunk < 0:
+        raise ValueError(f"ez_chunk {ez_chunk} < 0")
+    dev = rows.device
+    rpb = ray_rows * 128
+    r = n_bins * rpb
+    ox, oy, oz, tn, tx = (scalars[i] for i in range(5))
+    if float(tn) < 0:
+        raise ValueError("trace_dense_rows_ref needs tmin >= 0 (its sort "
+                         "key orders t by its bits)")
+    nt = rows.shape[0] // GPT
+    tris = rows.reshape(nt, GPT, 128)[:, :, :GROUPS * CPL].reshape(
+        nt, TPT, CPL)
+    d = dirs.reshape(3, n_bins, rpb)
+    g = 0 if g_r1 is None else int(g_r1[0])
+    vbin, vtile = _visits(row0, row1, g, n_bins)
+    lane = torch.arange(rpb, device=dev)
+    no_hit = torch.iinfo(torch.int64).max
+    best = torch.full((r,), no_hit, dtype=torch.int64, device=dev)
+    hu = torch.zeros((r,), dtype=torch.float32, device=dev)
+    hv = torch.zeros((r,), dtype=torch.float32, device=dev)
+    step = max(REF_CHUNK // (rpb * TPT), 1)
+    for s in range(0, vbin.numel(), step):
+        vb, tt = vbin[s:s + step], tris[vtile[s:s + step]][:, None]
+        v0x, v0y, v0z = tt[..., 0], tt[..., 1], tt[..., 2]     # (C, 1, 88)
+        e1x, e1y, e1z = tt[..., 3], tt[..., 4], tt[..., 5]
+        e2x, e2y, e2z = tt[..., 6], tt[..., 7], tt[..., 8]
+        tid = tt[..., 9].to(torch.int32)
+        dx, dy, dz = (d[c, vb][:, :, None] for c in range(3))  # (C, rpb, 1)
+        tvx, tvy, tvz = ox - v0x, oy - v0y, oz - v0z
+        qx = tvy * e1z - tvz * e1y
+        qy = tvz * e1x - tvx * e1z
+        qz = tvx * e1y - tvy * e1x
+        c0 = e2x * qx + e2y * qy + e2z * qz
+        px = dy * e2z - dz * e2y
+        py = dz * e2x - dx * e2z
+        pz = dx * e2y - dy * e2x
+        det = e1x * px + e1y * py + e1z * pz
+        one = torch.ones_like(det)
+        inv = one / torch.where(det == 0, one, det)
+        u = (tvx * px + tvy * py + tvz * pz) * inv
+        v = (dx * qx + dy * qy + dz * qz) * inv
+        t = c0 * inv
+        ok = ((det != 0) & (tid >= 0) & (u >= 0) & (v >= 0) & (u + v <= 1)
+              & (t > tn) & (t < tx))
+        key = torch.where(
+            ok, (t.view(torch.int32).to(torch.int64) << 32)
+            | tid.to(torch.int64), no_hit)
+        kmin, arg = key.min(dim=2)                              # (C, rpb)
+        ray = vb[:, None] * rpb + lane[None, :]
+        best.scatter_reduce_(0, ray.reshape(-1), kmin.reshape(-1), "amin")
+        win = (kmin == best[ray]) & (kmin != no_hit)
+        sel = arg[:, :, None]
+        hu[ray[win]] = torch.gather(u, 2, sel)[..., 0][win]
+        hv[ray[win]] = torch.gather(v, 2, sel)[..., 0][win]
+    hit = best != no_hit
+    tri = torch.where(hit, (best & 0xFFFFFFFF).to(torch.int32), -1)
+    t_bits = (best >> 32).to(torch.int32).view(torch.float32)
+    return tri, torch.where(hit, t_bits, tx), hu, hv
+
+
+def trace_dense_primary(verts, cam, dirn, *, width, height, tile=16,
+                        ez_chunk=4, p_max=None, k_cap=64, sort_mode="v5",
+                        kernel="walk"):
+    """Primary-ray closest hit over the full camera grid.
+
+    verts: (n, 3, 3) f32 on the device; cam: camera_arrays dict; dirn:
+    (W*H, 3) unit dirs in Morton slot order, from the camera position with
+    tmin = znear and tmax = zfar. W and H are multiples of the
+    power-of-two tile. Returns (tri, t, u, v) in slot order; tri -2 on
+    every ray when a static size was too small.
+    """
+    if sort_mode != "v5":
+        raise NotImplementedError(
+            f"sort_mode {sort_mode!r}: only prep v5 is ported (ROADMAP "
+            "queue 1, item 7: v2-v4 were superseded)")
+    if kernel not in KERNELS:
+        raise NotImplementedError(
+            f"kernel {kernel!r} is not ported yet (ROADMAP queue 2, item "
+            "12: the visit-list kernel)")
+    if width % tile or height % tile or tile & (tile - 1):
+        raise ValueError("W/H must be multiples of the power-of-two tile")
+    if (tile * tile) % 128:
+        raise ValueError("tile*tile must be a multiple of 128")
+    ray_rows = tile * tile // 128
+    txn, tyn = width // tile, height // tile
+    nb = txn * tyn
+    mcodes = torch.from_numpy(bin_mcodes(txn, tyn, 31 - Z_BITS)).to(
+        verts.device)
+    dirs, scalars = dense_rays(dirn, cam["pos"], cam["znear"], cam["zfar"],
+                               nb, ray_rows)
+    kw = dict(width=width, height=height, tile=tile)
+    _, _, n_g = (int(x) for x in count_pairs_dense(
+        verts, cam, k_slots=k_cap, k2_slots=k_cap, **kw))
+    _, hist, _ = count_hist_dense(verts, cam, k_cap=k_cap, **kw)
+    n_ks = pick_nks(hist.cpu().numpy())
+    if p_max is None:
+        p_max = pick_cap(sum(n_ks), 16 * TPT)
+    g2_max = pick_cap(n_g, TPT, pad=TPT) if n_g else 0
+    rows, row0, row1, g_r1, ok = binraster_prep_dense5(
+        verts, cam, mcodes, p_max=p_max, n_ks=n_ks, k_cap=k_cap,
+        g2_max=g2_max, z_bits=Z_BITS, **kw)
+    if kernel == "dma":
+        tri, t, u, v = trace_dense_rows_dma(
+            rows, row0, row1, dirs, scalars, g_r1, n_bins=nb,
+            ray_rows=ray_rows)
+    else:
+        tri, t, u, v = trace_dense_rows(
+            rows, row0, row1, dirs, scalars, g_r1, n_bins=nb,
+            ray_rows=ray_rows, ez_chunk=ez_chunk)
+    return torch.where(ok, tri, -2), t, u, v

@@ -17,11 +17,14 @@ PORT_MODULES = (
     "ntrace_tpu_torch.tables",
     "ntrace_tpu_torch.kernels.build",
     "ntrace_tpu_torch.ops.aabb",
+    "ntrace_tpu_torch.ops.morton",
     "ntrace_tpu_torch.ray.pixeltable",
     "ntrace_tpu_torch.ray.raybatch",
     "ntrace_tpu_torch.ray.raygen",
     "ntrace_tpu_torch.trace.packet_common",
     "ntrace_tpu_torch.trace.packet",
+    "ntrace_tpu_torch.trace.binraster",
+    "ntrace_tpu_torch.trace.binraster_dense",
     "ntrace_tpu_torch.utils.timing",
     "ntrace_tpu_torch.render.renderer",
 )

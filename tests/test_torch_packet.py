@@ -162,7 +162,8 @@ def test_library_path_keyed_by_sources():
     path = kbuild.library_path()
     assert path.parent == kbuild.BUILD_DIR
     assert path == kbuild.library_path()
-    assert [p.name for p in kbuild.sources()] == ["packet_trace.cu"]
+    assert [p.name for p in kbuild.sources()] == ["dense_trace.cu",
+                                                  "packet_trace.cu"]
     assert "--fmad=false" in kbuild.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in kbuild.NVCC_FLAGS
     assert "--use_fast_math" not in kbuild.NVCC_FLAGS

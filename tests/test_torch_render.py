@@ -134,7 +134,7 @@ def test_trace_batched_retries_only_on_oom():
 @pytest.mark.parametrize("kw,match", [
     (dict(mode="shadow"), "secondary modes"),
     (dict(engine="stack2"), "not ported"),
-    (dict(engine="binraster_dense"), "dense primary engine"),
+    (dict(engine="binraster"), "v1 screen-space engine"),
     (dict(seed_primary="on"), "seeded primary"),
 ])
 def test_unported_paths_raise(soup_small, kw, match):
