@@ -31,13 +31,23 @@ Phases, each printed as it completes:
      differ decided by brute_force_mt for dense; times of the prep, the
      kernels, the twin, the render stages and the frame with and without
      the prep
-Then one JSON line of per-kernel results, the nvidia-smi line, and as the
-last line {"ok": true, "device": {...}}. Any failed check raises and the
-script exits non-zero. Without a CUDA device it exits non-zero at once.
+  7. the device LBVH build (builder="lbvh", max_leaf_size=32): the row-scan
+     kernel (csrc/row_scan.cu) bit-equal to row_scan_i32_ref on random
+     (R, n) int32 at R in {1, 8, 31}, n in {1, 257, 8193, 297024}, both
+     ops and directions, and on the hairball build's two ANSV inputs
+     (31, 2,900,402); the conference build on the card bit-equal to the
+     same build on the CPU; structural checks of the hairball build; the
+     LBVH frame (render() through the row-scan and packet kernels) against
+     the golden and brute-force oracles and against phase 4's frame on
+     every ray; times of the build at both sizes, of each row-scan launch
+     beside torch.cummax and the plain version, and of the frame's trace
+Then one JSON line of per-kernel results (with each kernel's bound from
+this run's work), the nvidia-smi line, and as the last line
+{"ok": true, "device": {...}}. Any failed check raises and the script
+exits non-zero. Without a CUDA device it exits non-zero at once.
 
-The script imports no module of the JAX package itself: the reference's
-jax-free host layers (scenes, BVH builders, CPU oracles) come through
-ntrace_tpu_torch.host, as they do for the port.
+The script imports nothing of the JAX package: the scenes, host BVH
+builders and CPU oracles are the port's own copies (ntrace_tpu_torch.host).
 
 Run from the repository root: python3 chip_smoke.py
 """
@@ -52,12 +62,15 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from ntrace_tpu_torch.bvh import lbvh
 from ntrace_tpu_torch.device import describe
 from ntrace_tpu_torch.host import (BuildConfig, RenderConfig, brute_force_mt,
                                    default_camera, get_scene,
                                    golden_mismatches, make_random_soup,
                                    pack_bvh, trace_cpu_golden)
+from ntrace_tpu_torch.host.bvh.sbvh import sbvh_impl_tag
 from ntrace_tpu_torch.kernels.build import build
+from ntrace_tpu_torch.ops.pscan import OPS, row_scan_i32, row_scan_i32_ref
 from ntrace_tpu_torch.ray import raygen
 from ntrace_tpu_torch.ray.pixeltable import pixel_table
 from ntrace_tpu_torch.render.renderer import Renderer, build_accel
@@ -71,10 +84,38 @@ KERNEL_REPLACES = "ntrace_tpu/trace/packet_pallas.py:99"
 DENSE_SOURCE = "ntrace_tpu_torch/csrc/dense_trace.cu"
 DENSE_REPLACES = {"walk": "ntrace_tpu/trace/binraster_dense.py:757",
                   "dma": "ntrace_tpu/trace/binraster_dense.py:1022"}
+SCAN_SOURCE = "ntrace_tpu_torch/csrc/row_scan.cu"
+SCAN_REPLACES = "ntrace_tpu/ops/pscan.py:33"
 SCENE_TRIS = 280_000          # get_scene("conference") -> 297,024 tris
+HAIRBALL_TRIS = 2_900_000     # get_scene("hairball") -> 2,900,402 tris
+LBVH_CFG = BuildConfig(builder="lbvh", max_leaf_size=32, sah_tri_cost=0.02)
 WIDTH, HEIGHT = 1024, 768
 GOLDEN_RAYS = 4096
 BRUTE_RAYS = 256
+# The bound of a kernel's row: NVIDIA's H100 SXM data sheet, full 700 W
+# power limit: 3.35 TB/s of HBM, 67 TFLOP/s of FP32 outside the tensor
+# cores. Per-test FP32 operations (min, max and compares counted, a
+# division as one, the running-minimum fold not counted): a packet node
+# visit is two slab tests of 12 subtracts and multiplies, 12 min/max and a
+# compare each (trace/packet_common.py:slab_child); a Moller-Trumbore test
+# of one ray and one triangle slot is 51 (mt_row_best, and
+# csrc/dense_trace.cu:test_tile for the dense kernels).
+HBM_BYTES_PER_MS = 3.35e9
+FP32_OPS_PER_MS = 67e9
+NODE_VISIT_OPS = 50
+MT_OPS = 51
+
+
+def bound(nbytes: float, ops: float):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    operations over the FP32 rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_MS, ops / FP32_OPS_PER_MS
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
 
 
 def log(msg: str):
@@ -138,12 +179,16 @@ def phase_main_path(device, n_tris=SCENE_TRIS, width=WIDTH, height=HEIGHT):
     scene = get_scene("conference", n_tris=n_tris)
     build_cfg = BuildConfig(builder="binned_sah", sah_tri_cost=0.02,
                             max_leaf_size=48)
+    impl = sbvh_impl_tag(scene.num_tris, build_cfg)
+    if n_tris == SCENE_TRIS and impl != "native":
+        raise AssertionError("the native binned-SAH builder "
+                             "(host/native/sbvh.cpp) did not build or load")
     flat = build_accel(scene, build_cfg)
     cfg = RenderConfig(width=width, height=height, mode="primary")
     r = Renderer(scene, build_cfg, cfg, flat=flat, device=device)
     tb = r.tables
     log(f"[4] scene {scene.name} tris={scene.num_tris} nodes={tb.num_nodes} "
-        f"engine={r.engine} layout tpr={tb.tris_per_row} "
+        f"{impl} binned-SAH engine={r.engine} layout tpr={tb.tris_per_row} "
         f"npr={tb.nodes_per_row} tables {tb.nbytes() / 1e6:.1f} MB "
         f"(nodes8 {tuple(tb.nodes8.shape)}, tris12 {tuple(tb.tris12.shape)})"
         f"; set-up {time.perf_counter() - t0:.1f} s")
@@ -226,9 +271,26 @@ def phase_timing(r, batch, smi):
         + ", ".join(f"{t:.1f}" for t in twin_ms)
         + f") = {R / plain_ms / 1e3:.3f} Mrays/s on {smi}; kernel "
         f"tri/t/u/v bit-equal to the twin on every ray")
+    bnd = packet_bound("[5]", r.tables, rays)
     profile_render(r, smi)
     torch.cuda.synchronize()
-    return ms, plain_ms, err
+    return ms, plain_ms, err, bnd
+
+
+def packet_bound(tag, tables, rays):
+    """The packet kernel's bound on these rays: its node visits and slot
+    tests, counted by one more (untimed) twin run, and the bytes of the
+    tables, the rays and the (tri, t, u, v) outputs."""
+    work = {}
+    trace_packet_ref(tables, *rays, work=work)
+    R = rays[0].shape[0]
+    ops = (work["node_visits"] * NODE_VISIT_OPS
+           + work["tri_slot_tests"] * MT_OPS)
+    bnd = bound(tables.nbytes() + nbytes(*rays) + 16 * R, ops)
+    log(f"{tag} packet kernel work: {work['node_visits']} node visits, "
+        f"{work['tri_slot_tests']} triangle slot tests, {ops:.4g} FP32 "
+        f"operations; bound {bnd[0]:.4f} ms by {bnd[1]}")
+    return bnd
 
 
 def profile_render(r, smi, tag="[5]"):
@@ -238,10 +300,17 @@ def profile_render(r, smi, tag="[5]"):
     warm = r.render(camera)
     log(f"{tag} warm render() stages without profiler (ms) on {smi}: "
         + json.dumps({k: round(v, 3) for k, v in warm.stats.items()}))
+    profile_once(f"{tag} profile of one warm render()",
+                 lambda: r.render(camera), smi)
+
+
+def profile_once(label, fn, smi, top=8):
+    """One call of fn() under torch.profiler: its wall time, the device's
+    busy time and share of it, and the device time of the top kernels."""
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        r.render(camera)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # Device-side events only (kernels, memcpys): a CPU op such as
@@ -251,9 +320,10 @@ def profile_render(r, smi, tag="[5]"):
                   if e.device_type == DeviceType.CUDA
                   and e.self_device_time_total > 0), key=lambda x: -x[1])
     busy = sum(ms for _, ms, _ in dev)
-    log(f"{tag} profile of one warm render(): wall {wall_ms:.3f} ms, device "
-        f"busy {busy:.3f} ms ({100 * busy / wall_ms:.1f}%) on {smi}; top: "
-        + "; ".join(f"{k[:60]} x{n} {ms:.3f} ms" for k, ms, n in dev[:8]))
+    log(f"{label}: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
+        f"({100 * busy / wall_ms:.1f}%) on {smi}; top: "
+        + "; ".join(f"{k[:60]} x{n} {ms:.3f} ms" for k, ms, n in dev[:top]))
+    return dev
 
 
 def dense_render(rd, kernel):
@@ -359,7 +429,14 @@ def phase_dense(r, batch):
         f"{len(diff)} rays" + (", each decided by brute_force_mt for the "
                                "dense engine" if len(diff) else ""))
     launches = {"walk": walk_launches, "dma": dma_launches}
-    return rd, ca, ops, kw, launches, errs
+    # The bound of either kernel (ez_chunk 0 walks every visit): each
+    # visit tests its bin's rays against the tile's triangles.
+    pairs = visits * c["ray_rows"] * 128 * bd.TPT
+    bnd = bound(nbytes(*ops) + 16 * R, pairs * MT_OPS)
+    log(f"[6] dense kernel work: {pairs} ray-triangle pair tests, "
+        f"{pairs * MT_OPS:.4g} FP32 operations; bound {bnd[0]:.4f} ms by "
+        f"{bnd[1]}")
+    return rd, ca, ops, kw, launches, errs, bnd
 
 
 def phase_dense_timing(rd, ca, batch, ops, kw, smi):
@@ -410,6 +487,242 @@ def phase_dense_timing(rd, ca, batch, ops, kw, smi):
     return ms
 
 
+def phase_scan_kernel(device):
+    """Phase 7: the row-scan kernel against its plain version on random
+    (R, n) int32, uniform over the whole range and as random walks (whose
+    extrema move across tiles), every op and direction. Returns the max
+    abs error, 0.0."""
+    rng = np.random.default_rng(77)
+    cases = 0
+    for R in (1, 8, 31):
+        for n in (1, 257, 8193, 297_024):
+            walk = (np.cumsum(rng.integers(-100, 101, size=(R, n)), axis=1)
+                    + rng.integers(-2 ** 30, 2 ** 30, size=(R, 1)))
+            uniform = rng.integers(-2 ** 31, 2 ** 31 - 1, size=(R, n))
+            for x in (walk, uniform):
+                x = torch.from_numpy(x.astype(np.int32)).to(device)
+                for op in OPS:
+                    for rev in (False, True):
+                        got = row_scan_i32(x, op=op, reverse=rev)
+                        want = row_scan_i32_ref(x, op=op, reverse=rev)
+                        if not torch.equal(got, want):
+                            raise AssertionError(
+                                f"row scan {op} reverse={rev} on {(R, n)}: "
+                                f"{int((got != want).sum())} values differ")
+                        cases += 1
+    log(f"[7] row scan: kernel bit-equal to row_scan_i32_ref in {cases} "
+        "cases: R in (1, 8, 31), n in (1, 257, 8193, 297024), uniform and "
+        "random-walk rows, max and min, forward and reverse")
+    return 0.0
+
+
+def _bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    a, b = a.cpu(), b.cpu()
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def check_packed(p, n: int, tag: str):
+    """Structure of a packed LBVH (one node per row): the internal links
+    name every row but the root (row 0) once, every leaf's rows lie in the
+    table, and every triangle id sits in exactly one slot."""
+    nc, tpr = p.num_nodes, p.tris_per_row
+    rec = p.nodes8[:nc, :16]
+    links, cnts = rec[:, 12:14], rec[:, 14:16]
+    inner = links >= 0
+    kids = torch.sort(links[inner].long()).values
+    if not torch.equal(kids, torch.arange(1, nc, device=kids.device)):
+        raise AssertionError(f"{tag}: internal links do not name rows "
+                             f"1..{nc - 1} once each")
+    rows0 = (-links[~inner] - 1).long()
+    rows = cnts[~inner].long()
+    tr = -(-n // tpr)
+    if int(rows0.min()) < 0 or int(rows.min()) < 1 \
+            or int((rows0 + rows).max()) > tr:
+        raise AssertionError(f"{tag}: a leaf's rows leave the {tr}-row "
+                             "triangle table")
+    ids = p.tris12[:, :tpr * 10].reshape(-1, 10)[:, 9]
+    ids = torch.sort(ids[ids >= 0].long()).values
+    if not torch.equal(ids, torch.arange(n, device=ids.device)):
+        raise AssertionError(f"{tag}: triangle ids are not each in one slot")
+    log(f"{tag} structure: {nc} nodes, root at row 0, {nc - 1} internal "
+        f"links each naming one row, {int((~inner).sum())} leaf links "
+        f"inside the {tr}-row table, all {n} triangle ids once each")
+
+
+def phase_lbvh_builds(device, conf, hair_tris=HAIRBALL_TRIS):
+    """Phase 7 checks of the build: the conference build on the card
+    bit-equal to the same build on the CPU (through the plain scan), the
+    hairball build's two ANSV scans through kernel and plain version, and
+    the structure of the hairball build. Returns the inputs on the card
+    of both scenes."""
+    ml = LBVH_CFG.max_leaf_size
+    t0 = time.perf_counter()
+    conf_dev = lbvh.device_inputs(conf, device)
+    gpu = lbvh.lbvh_device_fast(*conf_dev, max_leaf=ml, emit="packed")
+    cpu = lbvh.lbvh_device_fast(*lbvh.device_inputs(conf, "cpu"),
+                                max_leaf=ml, emit="packed")
+    keys = ("pnodes", "ptris", "node_count", "leaf_count", "order", "kept")
+    bad = [k for k in keys if not _bit_equal(gpu[k], cpu[k])]
+    if bad:
+        raise AssertionError(f"conference LBVH: the card's build differs "
+                             f"from the CPU's in {bad}")
+    log(f"[7] conference LBVH ({conf.num_tris} tris, max_leaf {ml}): card "
+        f"build bit-equal to the CPU build in {', '.join(keys)}; "
+        f"{int(gpu['node_count'])} nodes (cap {gpu['cap']}), "
+        f"{int(gpu['leaf_count'])} leaves; "
+        f"{time.perf_counter() - t0:.1f} s with the CPU build")
+    check_packed(lbvh.build_packed_from(conf_dev, ml), conf.num_tris, "[7]")
+
+    t0 = time.perf_counter()
+    hair = get_scene("hairball", n_tris=hair_tris)
+    hair_dev = lbvh.device_inputs(hair, device)
+    log(f"[7] hairball: {hair.num_tris} tris, scene and upload "
+        f"{time.perf_counter() - t0:.1f} s")
+    D = lbvh.split_levels(lbvh.morton_sort(*hair_dev)[0])
+    got = lbvh.ansv_scans(D)
+    want = lbvh.ansv_scans(D, row_scan_i32_ref)
+    for name, a, b in zip(("forward cummax", "reverse cummin"), got, want):
+        if not torch.equal(a, b):
+            raise AssertionError(f"hairball ANSV {name}: kernel differs from "
+                                 f"the plain version on "
+                                 f"{int((a != b).sum())} values")
+    log(f"[7] hairball ANSV scans {tuple(got[0].shape)}: forward cummax and "
+        "reverse cummin bit-equal to row_scan_i32_ref")
+    del got, want, D
+    check_packed(lbvh.build_packed_from(hair_dev, ml), hair.num_tris,
+                 "[7] hairball")
+    return conf_dev, hair_dev
+
+
+def phase_lbvh_frame(r, batch):
+    """Phase 7, the LBVH main path: Renderer(builder="lbvh") builds the
+    packet tables on the card and render() traces them; the row-scan and
+    packet counts are set to 0 just before and read just after. Then the
+    oracles, and phase 4's binned-SAH frame on every ray, brute_force_mt
+    deciding any difference. Returns the renderer and the counts."""
+    W, H = r.cfg.width, r.cfg.height
+    camera = default_camera("conference")
+    sah = r.render(camera)
+    row_scan_i32.launches = 0
+    trace_packet.launches = 0
+    rl = Renderer(r.scene, LBVH_CFG, RenderConfig(width=W, height=H,
+                                                  mode="primary",
+                                                  engine="auto"),
+                  device=r.device)
+    res = rl.render(camera)
+    counts = {"row_scan": row_scan_i32.launches,
+              "packet": trace_packet.launches}
+    if rl.flat is not None or rl.tables.device.type != r.device.type:
+        raise AssertionError("builder='lbvh' did not build its tables on "
+                             "the card")
+    if counts["row_scan"] < 2 or counts["packet"] < 1:
+        raise AssertionError(f"the LBVH path skipped a kernel: {counts}")
+    img = res.image
+    if img.shape != (H, W, 3) or not np.isfinite(img).all() \
+            or not img.max() > 0:
+        raise AssertionError("LBVH render: bad or black image")
+    log(f"[7] LBVH render: counts {json.dumps(counts)}, "
+        f"{rl.tables.num_nodes} nodes, tables {rl.tables.nbytes() / 1e6:.1f}"
+        f" MB, image mean {img.mean():.4f}, hit rate "
+        f"{(res.hit_tri >= 0).mean():.4f}, build {rl.timer.ms()['build']:.1f}"
+        " ms, stages "
+        + json.dumps({k: round(v, 3) for k, v in res.stats.items()}))
+    order, _ = pixel_table(W, H)
+    check_oracles("[7]", r.scene, r.flat, res, batch, order)
+
+    slot = order.astype(np.int64)
+    tri_l, tri_s = res.hit_tri[slot], sah.hit_tri[slot]
+    diff = np.nonzero(tri_l != tri_s)[0]
+    if len(diff):
+        host = [a.cpu().numpy()[diff] for a in (batch.orig, batch.dirn,
+                                                batch.tmin, batch.tmax)]
+        bf = brute_force_mt(r.scene, *host)
+        wrong = int((tri_l[diff] != bf.tri).sum())
+        if wrong:
+            raise AssertionError(f"LBVH vs binned-SAH frame: brute_force_mt "
+                                 f"sides with SAH on {wrong} of {len(diff)} "
+                                 "rays")
+    log(f"[7] LBVH vs binned-SAH frame on all {len(slot)} rays: tri differs "
+        f"on {len(diff)}" + (", each decided by brute_force_mt for LBVH"
+                             if len(diff) else ""))
+    return rl, counts
+
+
+def phase_lbvh_timing(rl, batch, conf_dev, hair_dev, smi):
+    """Phase 7 times, CUDA events, warm, medians of 10: the packed build at
+    both sizes (with its node_count read), each row-scan launch on the
+    build's real ANSV inputs beside torch.cummax and the plain version,
+    and the LBVH frame's trace_primary."""
+    ml = LBVH_CFG.max_leaf_size
+
+    def med(name, fn, iters=10, warmup=2):
+        times = cuda_ms(fn, warmup=warmup, iters=iters)
+        ms = statistics.median(times)
+        log(f"[7] {name}: median {ms:.4f} ms of {iters} (min "
+            f"{min(times):.4f}, max {max(times):.4f}) on {smi}")
+        return ms
+
+    out = {}
+    for size, args in (("conference", conf_dev), ("hairball", hair_dev)):
+        n = args[0].shape[0]
+        build_ms = med(f"{size} packed build, {n} tris",
+                       lambda: lbvh.build_packed_from(args, ml))
+        log(f"[7] {size} build: {build_ms / (n / 1e6):.3f} ms/Mtri")
+        profile_once(f"[7] profile of one warm {size} build",
+                     lambda: lbvh.build_packed_from(args, ml), smi, top=10)
+        D = lbvh.split_levels(lbvh.morton_sort(*args)[0])
+        xmax, xmin = lbvh.ansv_inputs(D)
+        # One read and one write of R*n int32, one compare per element.
+        t = {"build": build_ms, "n": n,
+             "bound": bound(2 * nbytes(xmax), xmax.numel())}
+        t["max"] = med(f"{size} row_scan_i32 max {tuple(xmax.shape)}",
+                       lambda: row_scan_i32(xmax, op="max"))
+        t["min_rev"] = med(f"{size} row_scan_i32 min reverse",
+                           lambda: row_scan_i32(xmin, op="min", reverse=True))
+        t["library"] = med(f"{size} torch.cummax(x, 1).values",
+                           lambda: torch.cummax(xmax, 1).values)
+        t["plain"] = med(f"{size} row_scan_i32_ref max",
+                         lambda: row_scan_i32_ref(xmax, op="max"))
+        t["plain_min_rev"] = med(
+            f"{size} row_scan_i32_ref min reverse",
+            lambda: row_scan_i32_ref(xmin, op="min", reverse=True))
+        # The device time of the kernel's two passes alone, without the
+        # wrapper's host work that the CUDA events above also hold.
+        reps = 10
+        dev = profile_once(f"[7] profile of {reps} {size} row_scan_i32 max "
+                           "launches",
+                           lambda: [row_scan_i32(xmax, op="max")
+                                    for _ in range(reps)], smi, top=4)
+        passes = {p: sum(ms for k, ms, _ in dev if p in k) / reps
+                  for p in ("row_tile_reduce", "row_tile_scan")}
+        t["device"] = sum(passes.values()) or None
+        log(f"[7] {size} row scan max per launch: device "
+            + (f"{t['device']:.4f} ms (reduce "
+               f"{passes['row_tile_reduce']:.4f}, scan "
+               f"{passes['row_tile_scan']:.4f}; profiler)"
+               if t["device"] else "time not measured (no profiler events)")
+            + f" beside {t['max']:.4f} ms by CUDA events around the wrapper")
+        b, by = t["bound"]
+        log(f"[7] {size} row scan bound {b:.4f} ms by {by} "
+            f"({2 * nbytes(xmax) / 1e6:.1f} MB at 3.35 TB/s); the max scan "
+            f"takes {t['max'] / b:.2f}x the bound")
+        out[size] = t
+        del D, xmax, xmin
+    rays = (batch.orig, batch.dirn, batch.tmin, batch.tmax)
+    out["trace"] = med("LBVH frame: Renderer.trace_primary",
+                       lambda: rl.trace_primary(*rays))
+    b2b = cuda_ms(lambda: [trace_packet(rl.tables, *rays)
+                           for _ in range(20)], warmup=1, iters=5)
+    log(f"[7] LBVH frame: 20 back-to-back trace_packet launches: "
+        f"{statistics.median(b2b) / 20:.4f} ms per launch (median of 5 "
+        f"runs) on {smi}")
+    packet_bound("[7] LBVH frame:", rl.tables, rays)
+    torch.cuda.synchronize()
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -428,24 +741,40 @@ def main():
     device = torch.device("cuda")
     phase_soup(device)
     r, batch, launches = phase_main_path(device)
-    ms, plain_ms, err = phase_timing(r, batch, smi)
-    rd, ca, ops, kw, dense_launches, dense_err = phase_dense(r, batch)
+    ms, plain_ms, err, packet_bnd = phase_timing(r, batch, smi)
+    rd, ca, ops, kw, dense_launches, dense_err, dense_bnd = phase_dense(
+        r, batch)
     if min(dense_launches.values()) < 1:
         raise AssertionError(f"a dense main path launched no kernel: "
                              f"{dense_launches}")
     dense_ms = phase_dense_timing(rd, ca, batch, ops, kw, smi)
+    del rd, ops
+    scan_err = phase_scan_kernel(device)
+    conf_dev, hair_dev = phase_lbvh_builds(device, r.scene)
+    rl, lbvh_counts = phase_lbvh_frame(r, batch)
+    lbvh_ms = phase_lbvh_timing(rl, batch, conf_dev, hair_dev, smi)
+    conf = lbvh_ms["conference"]
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     kernels = [{
         "name": "packet_trace", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}]
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": packet_bnd[0], "bound_by": packet_bnd[1],
+        "library_ms": None}]
     for k in ("walk", "dma"):
         kernels.append({
             "name": f"dense_{k}", "route": "cuda", "source": DENSE_SOURCE,
             "replaces": DENSE_REPLACES[k], "launches": dense_launches[k],
             "max_abs_err": dense_err[k], "ms": dense_ms[k],
-            "plain_ms": dense_ms["twin"]})
+            "plain_ms": dense_ms["twin"], "bound_ms": dense_bnd[0],
+            "bound_by": dense_bnd[1], "library_ms": None})
+    kernels.append({
+        "name": "row_scan", "route": "cuda", "source": SCAN_SOURCE,
+        "replaces": SCAN_REPLACES, "launches": lbvh_counts["row_scan"],
+        "max_abs_err": scan_err, "ms": conf["max"],
+        "plain_ms": conf["plain"], "bound_ms": conf["bound"][0],
+        "bound_by": conf["bound"][1], "library_ms": conf["library"]})
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

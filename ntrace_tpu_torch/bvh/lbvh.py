@@ -1,0 +1,531 @@
+"""LBVH: the Morton-code BVH built on the device, in torch.
+
+Counterpart of ntrace_tpu/bvh/lbvh.py: `_device_woopify` (58-85),
+`lbvh_device_fast` (345-859, emit="packed" and "flat"), `build_lbvh_packed`
+(862-904) and `build_lbvh_flat` (907-963). The tree is the reference's to
+the bit:
+  - Morton codes of the triangle centroids, sorted with the triangle index
+    as the tie break (`morton_sort`);
+  - the binary radix tree over the boundaries of the sorted codes, through
+    all nearest smaller values by value class (`split_levels`, `ansv`):
+    two (31, n) class scans, a forward cummax and a reverse cummin, which
+    go through `ops/pscan.py:row_scan_i32`, so the CUDA kernel
+    csrc/row_scan.cu on a CUDA tensor and its plain version on the CPU;
+  - pruning of subtrees with at most max_leaf triangles (and of duplicate-
+    code splits), the leaf runs, the sparse range-min table for the child
+    boxes, compaction to the kept nodes, the child-to-parent link scatter,
+    and either the packet kernel's tables (emit="packed": node records and
+    dense triangle slots, root at row 0, links as float values) or the
+    FlatBVH arrays (emit="flat": Woop rows with leaf-end sentinels).
+
+Where torch differs from lax, the port keeps the reference's result:
+  - `clz` is ops/morton.py:clz32; the logical right shifts mask the
+    arithmetic ones;
+  - the multi-operand sorts with num_keys=2 have unique keys through the
+    index: the Morton sort is one torch.sort of (code << 32) | index; the
+    kept-first compaction sort is the stable partition it computes (each
+    kept row to its rank among the kept, each other row after them);
+  - the num_keys=1 sort before the link scatter only orders updates whose
+    targets are unique, so the port scatters them unsorted;
+  - mode="drop" scatters write their dropped updates to one spare slot
+    past the end, which is then cut off;
+  - the child boxes read the sparse table at (level, position) directly,
+    which selects the same values as the reference's position-major copy
+    and its level-group fold;
+  - the 31-way select chains are one gather on the class index.
+In the flat emission the Woop rows are f32 cross products written out as
+separate multiplies and subtractions; XLA on the CPU contracts them into
+fused multiply-adds, so the rows agree with the JAX build within a few ulp
+(tests/test_torch_lbvh.py states the bound), and every other output is
+bit-equal.
+
+Not ported: the `_ablate` probes (ROADMAP queue 1, item 15), the
+NTRACE_LBVH_PLACE "scatter" and "pair4" placements (recorded negatives on
+the TPU; only "gather" is ported), the NTRACE_ANSV switch (a CUDA tensor
+always takes the kernel) and `lbvh_device`, the 30-level sweep that HLBVH
+needs (ROADMAP queue 1, item 9).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ntrace_tpu_torch.host import (BuildConfig, FlatBVH, PackedBVH, Scene,
+                                   build_median_bvh, flatten_bvh, pack_bvh)
+from ntrace_tpu_torch.ops.morton import clz32, morton_codes_3d
+from ntrace_tpu_torch.ops.pscan import row_scan_i32
+
+MAX_TRIS = 1 << 24      # tri ids and links ride float32 values
+CLASSES = 31            # split levels 0..30
+_LEAF_END = float(np.array([-0x80000000], np.int32).view(np.float32)[0])
+
+
+def _i32(n, dev):
+    return torch.arange(n, dtype=torch.int32, device=dev)
+
+
+def _cumsum(b: torch.Tensor) -> torch.Tensor:
+    return torch.cumsum(b.to(torch.int32), 0, dtype=torch.int32)
+
+
+def _srl(x: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int32 (lax.shift_right_logical)."""
+    return (x >> s) & ((1 << (32 - s)) - 1)
+
+
+def _set_drop(arr: torch.Tensor, idx: torch.Tensor, val: torch.Tensor):
+    """arr[idx] = val along dim 0, updates with idx outside [0, len) dropped
+    (lax scatter mode="drop"); live targets are distinct."""
+    m = arr.shape[0]
+    idx = torch.where((idx >= 0) & (idx < m), idx, m).long()
+    ext = torch.cat([arr, arr[:1]])
+    ext[idx] = val
+    return ext[:m]
+
+
+def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """jnp.cross of (n, 3) rows, each product and difference its own op."""
+    return torch.stack([a[:, 1] * b[:, 2] - a[:, 2] * b[:, 1],
+                        a[:, 2] * b[:, 0] - a[:, 0] * b[:, 2],
+                        a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0]], dim=1)
+
+
+def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """jnp.sum(a * b, axis=1) over 3 lanes, summed left to right."""
+    p = a * b
+    return (p[:, 0] + p[:, 1]) + p[:, 2]
+
+
+def device_woopify(tv: torch.Tensor) -> torch.Tensor:
+    """(n, 3, 3) f32 triangles -> (n, 12) f32 Woop rows (closed-form
+    adjugate); degenerate triangles get the never-hit poison row."""
+    p0, p1, p2 = tv[:, 0], tv[:, 1], tv[:, 2]
+    e1 = p1 - p0
+    e2 = p2 - p0
+    nrm = _cross(e1, e2)
+    det = _dot3(nrm, nrm)
+    ok = det != 0.0
+    inv_det = torch.where(
+        ok, 1.0 / torch.where(ok, det, torch.ones_like(det)),
+        torch.zeros_like(det))[:, None]
+    r0 = _cross(e2, nrm) * inv_det
+    r1 = _cross(nrm, e1) * inv_det
+    r2 = nrm * inv_det
+    t0 = -_dot3(r0, p0)
+    t1 = -_dot3(r1, p0)
+    t2 = -_dot3(r2, p0)
+    w = torch.cat([r2, (-t2)[:, None], r0, t0[:, None], r1, t1[:, None]],
+                  dim=1)
+    poison = torch.zeros((12,), dtype=torch.float32, device=tv.device)
+    poison[7] = -1.0
+    poison[11] = -1.0
+    w = torch.where(ok[:, None], w, poison[None, :])
+    # m0.x must never alias the -0.0 leaf sentinel.
+    w[:, 0] = w[:, 0] + 0.0
+    return w
+
+
+def morton_sort(tri_lo, tri_hi, tri_verts, scene_lo, scene_hi):
+    """Morton codes of the centroids, sorted by (code, index).
+    Returns (codes, order, slo, shi, tv_s), all in sorted order."""
+    n = tri_lo.shape[0]
+    cent = (tri_lo + tri_hi) * 0.5
+    codes = morton_codes_3d(cent, scene_lo, scene_hi)
+    key = (codes.to(torch.int64) << 32) | _i32(n, tri_lo.device).long()
+    key = torch.sort(key).values
+    order = (key & 0xFFFFFFFF).to(torch.int32)
+    o = order.long()
+    return ((key >> 32).to(torch.int32), order, tri_lo[o], tri_hi[o],
+            tri_verts[o])
+
+
+def split_levels(codes: torch.Tensor) -> torch.Tensor:
+    """D: the split level of each boundary of the sorted codes, the common-
+    prefix length of rows (i-1, i) in [0, 30], and -1 at row 0."""
+    x = codes[1:] ^ codes[:-1]
+    d = torch.where(x == 0, 30, clz32(x) - 2).to(torch.int32)
+    return torch.cat([torch.full((1,), -1, dtype=torch.int32,
+                                 device=codes.device), d])
+
+
+def ansv_inputs(D: torch.Tensor):
+    """The two (31, n) int32 inputs of the class scans: row c holds
+    (pos << 5) | (D + 1) where D <= c (else -1) for the forward cummax, and
+    where D < c (else (n << 5) | 31) for the reverse cummin."""
+    n = D.shape[0]
+    cs = torch.arange(CLASSES, dtype=torch.int32, device=D.device)[:, None]
+    packed = (_i32(n, D.device) << 5) | (D + 1)
+    big = (n << 5) | 31
+    xmax = torch.where(D[None, :] <= cs, packed[None, :], -1)
+    xmin = torch.where(D[None, :] < cs, packed[None, :], big)
+    return xmax.to(torch.int32), xmin.to(torch.int32)
+
+
+def ansv_scans(D: torch.Tensor, scan=row_scan_i32):
+    """The pair of class scans, through `scan` (row_scan_i32 or its plain
+    version): (forward cummax, reverse cummin), each (31, n) int32."""
+    xmax, xmin = ansv_inputs(D)
+    P = scan(xmax, op="max")
+    del xmax
+    return P, scan(xmin, op="min", reverse=True)
+
+
+def ansv(D: torch.Tensor, scan=row_scan_i32):
+    """Nearest smaller values by value class, packed (pos << 5) | (D + 1):
+    nsl(i) nearest j < i with D[j] <= D[i] (-1 at row 0), nsr(i) nearest
+    j > i with D[j] < D[i] ((n << 5) | 31 when there is none)."""
+    n = D.shape[0]
+    P, Q = ansv_scans(D, scan)
+    cls = D.clamp(min=0).long()[None, :]
+    big = (n << 5) | 31
+    dev = D.device
+    nsl = torch.cat([torch.full((1,), -1, dtype=torch.int32, device=dev),
+                     P[:, :-1].gather(0, cls[:, 1:])[0]])
+    nsr = torch.cat([Q[:, 1:].gather(0, cls[:, :-1])[0],
+                     torch.full((1,), big, dtype=torch.int32, device=dev)])
+    return nsl, nsr
+
+
+def lbvh_device_fast(tri_lo, tri_hi, tri_verts, scene_lo, scene_hi,
+                     max_leaf: int = 4, compact_cap: int | None = None,
+                     emit: str = "flat", tpr: int = 12, npr: int = 1):
+    """Single-pass LBVH emission on the tensors' device.
+
+    tri_lo/tri_hi: (n, 3) f32 triangle boxes; tri_verts: (n, 3, 3) f32;
+    scene_lo/scene_hi: (3,) f32. Node records come out compact: `nodes`
+    (flat) or the records in `pnodes` (packed) have the cap's rows, the
+    first node_count valid. A spine-shaped tree can overflow the cap
+    (node_count > cap); the wrappers then rebuild with compact_cap=n.
+    emit="packed": dict(pnodes, ptris, kept, root=0, node_count, cap,
+    leaf_count, order); emit="flat": dict(nodes (cap, 16), woop (2n, 12),
+    tri_index (2n,), kept, root (compact id), node_count, cap, leaf_count,
+    order). Counts are 0-d int32 tensors on the device; cap is an int.
+    """
+    n = tri_lo.shape[0]
+    if n >= MAX_TRIS:
+        raise ValueError("lbvh_device_fast: tri ids ride a float32 value "
+                         "lane, exact only below 2**24 tris")
+    if emit not in ("packed", "flat"):
+        raise ValueError(f"emit must be 'packed' or 'flat', got {emit!r}")
+    dev = tri_lo.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    iota = _i32(n, dev)
+    codes, order, slo, shi, tv_s = morton_sort(tri_lo, tri_hi, tri_verts,
+                                               scene_lo, scene_hi)
+    D = split_levels(codes)
+    nsl, nsr = ansv(D)
+    a = _srl(nsl, 5)            # range start row (0 if none)
+    dl = (nsl & 31) - 1
+    b = _srl(nsr, 5)            # range end row (n if none)
+    dr = (nsr & 31) - 1
+
+    # Parent: the deeper of the two nearest-smaller neighbours.
+    prio_l = ((dl + 1) << 25) | a
+    prio_r = ((dr + 1) << 25) | b
+    no_r = b >= n
+    root_f = (a <= 0) & no_r
+    par_left = no_r | (prio_l > prio_r)
+    parent = torch.where(par_left, a, b)
+    side = par_left.to(torch.int32)
+    size = b - a
+    # Duplicate-code (D == 30) splits are never kept: one fat leaf.
+    kept = (iota >= 1) & (size > max_leaf) & (D < 30)
+
+    leaf_start = kept | (iota == 0)
+    runs_incl = _cumsum(leaf_start)
+    lcount = runs_incl[-1]
+    dst = iota + runs_incl - 1          # woop row of sorted tri r
+
+    pk = torch.cummax(torch.where(kept, iota, -1), 0).values
+    nk = torch.cummin(torch.where(kept, iota, n).flip(0), 0).values.flip(0)
+    pks = torch.cat([torch.full((1,), -1, dtype=torch.int32, device=dev),
+                     pk[:-1]])
+    nks = torch.cat([nk[1:], torch.full((1,), n, dtype=torch.int32,
+                                        device=dev)])
+    lleaf = pks <= a      # no kept boundary strictly inside (a, i)
+    rleaf = nks >= b      # no kept boundary strictly inside (i, b)
+
+    # Sparse range-min table over the sorted boxes, (L, 6, n): lo, -hi.
+    level0 = torch.cat([slo.t(), -shi.t()], dim=0)
+    logn = max(int(np.ceil(np.log2(max(n, 2)))), 1)
+    L = logn + 1
+    levels = [level0]
+    for k in range(1, L):
+        half = 1 << (k - 1)
+        prev = levels[-1]
+        pad = torch.full((6, min(half, n)), np.inf, **f32)
+        levels.append(torch.minimum(
+            prev, torch.cat([prev[:, half:], pad], dim=1)))
+    table = torch.stack(levels).reshape(-1)
+    del levels
+    lanes6 = torch.arange(6, device=dev)
+
+    def probe(k, pos):
+        """table[k, :, pos] for each compact node: (m, 6)."""
+        return table[(k.long()[:, None] * 6 + lanes6) * n
+                     + pos.long()[:, None]]
+
+    def k_of(sz):
+        return torch.clamp(31 - clz32(torch.clamp(sz, min=1)), max=logn)
+
+    # Compaction to the kept nodes, kept rows first in row order.
+    if compact_cap is None:
+        ncap = min(n, int(n * 3.2 / (max_leaf + 4)) + 256)
+    else:
+        ncap = min(max(compact_cap, 8), n)
+    ncap = min(-(-ncap // 8) * 8, n)
+    kposi = _cumsum(kept) - 1            # compact slot per kept row
+    node_count = torch.clamp(kposi[-1] + 1, min=0)
+    slot = torch.where(kept, kposi, node_count + iota - kposi - 1)
+    perm = torch.empty_like(iota).scatter_(0, slot.long(), iota)
+    cidx = perm[:ncap]
+    ci = cidx.long()
+    a_c, b_c, dst_i = a[ci], b[ci], dst[ci]
+    lleaf_c, rleaf_c = lleaf[ci], rleaf[ci]
+    parent_c, side_c, root_c = parent[ci], side[ci], root_f[ci]
+    ic = _i32(ncap, dev)
+    cvalid = ic < node_count
+    k0 = k_of(cidx - a_c)
+    k1 = k_of(b_c - cidx)
+    one = torch.ones_like(k0)
+    m0 = torch.minimum(probe(k0, a_c.clamp(0, n - 1)),
+                       probe(k0, (cidx - (one << k0)).clamp(0, n - 1)))
+    m1 = torch.minimum(probe(k1, cidx),
+                       probe(k1, (b_c - (one << k1)).clamp(0, n - 1)))
+    del table
+    dst_a = dst[a_c.clamp(0, n - 1).long()]   # left-child run offsets
+
+    if emit == "packed":
+        # Leaf child -> -(first tri row + 1) of the dense sorted slots.
+        enc0 = torch.where(lleaf_c, -torch.div(a_c, tpr,
+                                               rounding_mode="floor") - 1, 0)
+        enc1 = torch.where(rleaf_c, -torch.div(cidx, tpr,
+                                               rounding_mode="floor") - 1, 0)
+    else:
+        enc0 = torch.where(lleaf_c, ~dst_a, 0)
+        enc1 = torch.where(rleaf_c, ~dst_i, 0)
+    enc = torch.stack([enc0, enc1], dim=1).to(torch.int32)
+    # The link scatter: each valid non-root kept node writes its compact id
+    # into its parent's child slot (targets are distinct).
+    pcomp = kposi[parent_c.clamp(0, n - 1).long()]
+    flat_t = torch.where(cvalid & ~root_c, pcomp * 2 + side_c, 2 * ncap)
+    enc = _set_drop(enc.reshape(-1), flat_t, ic).reshape(ncap, 2)
+    lo0, hi0 = m0[:, 0:3], -m0[:, 3:6]
+    lo1, hi1 = m1[:, 0:3], -m1[:, 3:6]
+    rootc = torch.argmax((cvalid & root_c).to(torch.int32)).to(torch.int32)
+
+    if emit == "packed":
+        return _emit_packed(
+            n, ncap, tpr, npr, cidx, a_c, b_c, lleaf_c, rleaf_c, cvalid,
+            enc, rootc, lo0, hi0, lo1, hi1, tv_s, order, kept, node_count,
+            lcount)
+
+    zero = torch.zeros((ncap,), **f32)
+    cols = [lo0[:, 0], hi0[:, 0], lo0[:, 1], hi0[:, 1],
+            lo1[:, 0], hi1[:, 0], lo1[:, 1], hi1[:, 1],
+            lo0[:, 2], hi0[:, 2], lo1[:, 2], hi1[:, 2]]
+    enc_m = torch.where(cvalid[:, None], enc, 0).contiguous()
+    nodes = torch.stack(
+        [torch.where(cvalid, c, zero) for c in cols]
+        + [enc_m[:, 0].contiguous().view(torch.float32),
+           enc_m[:, 1].contiguous().view(torch.float32), zero, zero], dim=1)
+
+    # Woop rows + tri ids by the "gather" placement: one scatter builds the
+    # output -> input row map (0: a leaf-end sentinel row), one row gather
+    # places the payload.
+    w = device_woopify(tv_s)
+    wcap = 2 * n
+    init_row = torch.zeros((13,), **f32)
+    init_row[0] = _LEAF_END
+    init_row[12] = -1.0
+    payload13 = torch.cat([w, order.to(torch.float32)[:, None]], dim=1)
+    src1 = _set_drop(torch.zeros((wcap,), dtype=torch.int32, device=dev),
+                     dst, iota + 1)
+    gathered = payload13[(src1 - 1).clamp(min=0).long()]
+    wout = torch.where((src1 > 0)[:, None], gathered, init_row[None, :])
+    return dict(nodes=nodes, woop=wout[:, :12].contiguous(),
+                tri_index=wout[:, 12].to(torch.int32), kept=kept,
+                root=rootc, node_count=node_count, cap=ncap,
+                leaf_count=lcount, order=order)
+
+
+def _emit_packed(n, ncap, tpr, npr, cidx, a_c, b_c, lleaf_c, rleaf_c,
+                 cvalid, enc, rootc, lo0, hi0, lo1, hi1, tv_s, order, kept,
+                 node_count, lcount):
+    """The packet kernel's tables (bvh/packed.py layout): node records with
+    the root at row 0 and links as float values, and the dense sorted
+    triangle slots [v0, e1, e2, id]."""
+    dev = cidx.device
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    def floor_div(x):
+        return torch.div(x, tpr, rounding_mode="floor")
+
+    size0 = cidx - a_c
+    size1 = b_c - cidx
+    row0 = floor_div(a_c)
+    row1 = floor_div(cidx)
+    rows0 = floor_div(a_c + size0.clamp(min=1) - 1) - row0 + 1
+    rows1 = floor_div(cidx + size1.clamp(min=1) - 1) - row1 + 1
+    # Root to slot 0 in the links (swap 0 <-> root); rows swapped below.
+    ei = torch.where(enc >= 0,
+                     torch.where(enc == rootc, 0,
+                                 torch.where(enc == 0, rootc, enc)), enc)
+    encf = ei.to(torch.float32)
+    # Traversal order code (axis * 2 + child 0 on the low side), from the
+    # child centres, as pack_bvh.
+    sep = (lo0 + hi0) - (lo1 + hi1)
+    sa = sep.abs()
+    axis = torch.where(sa[:, 1] > sa[:, 0], 1, 0)
+    axis = torch.where(sa[:, 2] > torch.maximum(sa[:, 0], sa[:, 1]), 2, axis)
+    sepa = torch.where(axis == 0, sep[:, 0],
+                       torch.where(axis == 1, sep[:, 1], sep[:, 2]))
+    code = (axis * 2 + (sepa <= 0).to(axis.dtype)).to(torch.float32)
+    both_int = ~lleaf_c & ~rleaf_c
+    zero = torch.zeros((ncap,), **f32)
+    cnt0 = torch.where(both_int, code,
+                       torch.where(lleaf_c, rows0.to(torch.float32), zero))
+    cnt1 = torch.where(rleaf_c, rows1.to(torch.float32), zero)
+    lanes = [lo0[:, 0], hi0[:, 0], lo0[:, 1], hi0[:, 1],
+             lo0[:, 2], hi0[:, 2], lo1[:, 0], hi1[:, 0],
+             lo1[:, 1], hi1[:, 1], lo1[:, 2], hi1[:, 2],
+             encf[:, 0], encf[:, 1], cnt0, cnt1]
+    rec = torch.stack([torch.where(cvalid, c, zero) for c in lanes], dim=1)
+    swap = torch.stack([torch.zeros_like(rootc), rootc.clamp(min=0)]).long()
+    rec[swap] = rec[swap.flip(0)]
+    nc8 = -(-ncap // 8) * 8
+    if nc8 != ncap:
+        rec = torch.cat([rec, torch.zeros((nc8 - ncap, 16), **f32)])
+    if npr == 8:
+        pnodes = rec.reshape(-1, 128)
+    else:
+        pnodes = torch.cat([rec, torch.zeros((nc8, 112), **f32)], dim=1)
+    # Dense tri slots in sorted order; >= 3 spare rows past the end. Pad
+    # slots have e1 = e2 = 0 (det == 0) and id -1: they never hit.
+    v0 = tv_s[:, 0, :]
+    payload10 = torch.cat([v0, tv_s[:, 1, :] - v0, tv_s[:, 2, :] - v0,
+                           order.to(torch.float32)[:, None]], dim=1)
+    tr = -(-n // tpr)
+    tr_pad = max(8, -(-(tr + 3) // 8) * 8)
+    padrow = torch.zeros((10,), **f32)
+    padrow[9] = -1.0
+    pt = torch.cat([payload10, padrow.expand(tr_pad * tpr - n, 10)])
+    pt = pt.reshape(tr_pad, tpr * 10)
+    ptris = torch.cat([pt, torch.zeros((tr_pad, 128 - tpr * 10), **f32)],
+                      dim=1)
+    return dict(pnodes=pnodes.contiguous(), ptris=ptris.contiguous(),
+                kept=kept, root=torch.zeros_like(rootc),
+                node_count=node_count, cap=ncap, leaf_count=lcount,
+                order=order)
+
+
+def device_inputs(scene: Scene, device) -> tuple:
+    """The build's inputs on `device`, f32: (tri_lo (n, 3), tri_hi (n, 3),
+    tri_verts (n, 3, 3), scene_lo (3,), scene_hi (3,))."""
+    tv = scene.tri_verts()
+    lo, hi = scene.bbox()
+    return tuple(torch.from_numpy(np.ascontiguousarray(x, np.float32))
+                 .to(device)
+                 for x in (tv.min(axis=1), tv.max(axis=1), tv, lo, hi))
+
+
+def _build(args: tuple, **kw):
+    """lbvh_device_fast with the reference's compact_cap retry: a spine-
+    shaped radix tree that overflows the cap is rebuilt with the always-
+    sufficient cap n. Returns (out, node_count), node_count read on the
+    host."""
+    out = lbvh_device_fast(*args, **kw)
+    nc = int(out["node_count"])
+    if nc > out["cap"]:
+        out = lbvh_device_fast(*args, compact_cap=args[0].shape[0], **kw)
+        nc = int(out["node_count"])
+    return out, nc
+
+
+def build_packed_from(args: tuple, max_leaf: int, *, tris_per_row: int = 12,
+                      nodes_per_row: int = 1) -> PackedBVH | None:
+    """The packed device build from `device_inputs`, with the compact_cap
+    retry; its one host read is node_count. None when the tree has no
+    internal node (n <= max_leaf)."""
+    out, nc = _build(args, max_leaf=max_leaf, emit="packed",
+                     tpr=tris_per_row, npr=nodes_per_row)
+    if nc == 0:
+        return None
+    return PackedBVH(nodes8=out["pnodes"], tris12=out["ptris"],
+                     num_nodes=nc, num_tris=args[0].shape[0],
+                     nodes_per_row=nodes_per_row, tris_per_row=tris_per_row)
+
+
+def _check_size(scene: Scene):
+    if scene.num_tris >= MAX_TRIS:
+        raise ValueError(f"LBVH: {scene.num_tris} triangles; tri ids ride a "
+                         "float32 value lane, exact only below 2**24")
+
+
+def _median_flat(scene: Scene, cfg: BuildConfig) -> FlatBVH:
+    return flatten_bvh(build_median_bvh(scene, cfg), scene)
+
+
+def build_lbvh_packed(scene: Scene, cfg: BuildConfig = BuildConfig(), *,
+                      tris_per_row: int = 12, nodes_per_row: int = 1,
+                      device="cuda") -> PackedBVH:
+    """The device build straight to the packet kernel's tables on `device`.
+
+    Returns a PackedBVH whose nodes8 / tris12 are tensors on `device`,
+    root at row 0. The one host read is node_count (for the cap check).
+    Fewer than 2 triangles, or no internal node (n <= max_leaf), take the
+    reference's median-builder route, packed on the host and moved to the
+    device. The per-frame rebuild of BASELINE config #4 is this function.
+    """
+    _check_size(scene)
+    n = scene.num_tris
+
+    def host_route():
+        p = pack_bvh(build_lbvh_flat(scene, cfg, device=device),
+                     scene.tri_verts(), tris_per_row=tris_per_row,
+                     nodes_per_row=nodes_per_row)
+        p.nodes8 = torch.from_numpy(np.ascontiguousarray(p.nodes8)).to(device)
+        p.tris12 = torch.from_numpy(np.ascontiguousarray(p.tris12)).to(device)
+        return p
+
+    if n < 2:
+        return host_route()
+    packed = build_packed_from(device_inputs(scene, device),
+                               cfg.max_leaf_size, tris_per_row=tris_per_row,
+                               nodes_per_row=nodes_per_row)
+    return host_route() if packed is None else packed
+
+
+def build_lbvh_flat(scene: Scene, cfg: BuildConfig = BuildConfig(), *,
+                    device="cuda") -> FlatBVH:
+    """The device build on `device`, brought back as a host FlatBVH (root at
+    node 0). Fewer than 2 triangles, or no internal node, take the
+    reference's median-builder route."""
+    _check_size(scene)
+    n = scene.num_tris
+    if n < 2:
+        return _median_flat(scene, cfg)
+    out, nc = _build(device_inputs(scene, device),
+                     max_leaf=cfg.max_leaf_size)
+    if nc == 0:   # n <= max_leaf: no internal node
+        return _median_flat(scene, cfg)
+    nodes = out["nodes"][:nc].cpu().numpy()
+    woop = out["woop"].cpu().numpy()
+    tri_index = out["tri_index"].cpu().numpy()
+    root = int(out["root"])
+    lc = int(out["leaf_count"])
+    # Device links are dense compact ids already; move the root to 0.
+    perm = np.concatenate(
+        [[root], np.delete(np.arange(nc, dtype=np.int64), root)])
+    remap = np.empty(nc, np.int32)
+    remap[perm] = np.arange(nc, dtype=np.int32)
+    nd = np.ascontiguousarray(nodes[perm])
+    for lane in (12, 13):
+        e = np.ascontiguousarray(nd[:, lane]).view(np.int32)
+        internal = e >= 0
+        e[internal] = remap[e[internal]]
+        nd[:, lane] = e.view(np.float32)
+    w_used = n + lc
+    return FlatBVH(nodes=nd, woop=woop[:w_used],
+                   tri_index=tri_index[:w_used], num_tris=n, sah_cost=0.0)

@@ -2,8 +2,9 @@
 
 Counterpart of the primary-frame slice of ntrace_tpu/render/renderer.py:
 `build_accel` (165-197), `normal_color` (200-210), `_trace_batched`
-(337-364), the engine resolution of `Renderer.__init__` (440-515, 597-664,
-689-698), `trace_primary` (1136-1188, the seed_primary="off" path),
+(337-364), the engine resolution of `Renderer.__init__` (404-440, 597-664,
+689-698) with the packed-direct LBVH path (404-433, 613-619),
+`trace_primary` (1136-1188, the seed_primary="off" path),
 `_cap` (1203-1208) and `render(mode="primary")` (1256-1394), and the dense
 screen-space primary engine: `prepare_primary` (924-930, 966-1027),
 `_dense_prep`, `freeze_primary_structure`, `_trace_binraster_dense`
@@ -18,8 +19,12 @@ packet kernel for every other ray. The port reads no tuned.json (its
 entries were measured on a TPU): the dense engine's settings are the
 reference renderer's code defaults (the DENSE_* constants), and "auto"
 means the packet kernel alone. There is one packed table on the device, no
-forest. Other modes, engines, builders and seed_primary settings raise
-NotImplementedError and name the ROADMAP item that ports them.
+forest. builder="lbvh" with engine "auto" or "packet" and no `flat` takes
+the packed-direct path on every device: the tables are built on the
+renderer's device (bvh/lbvh.py:build_lbvh_packed) and traced in place, and
+`self.flat` is None. Other modes, engines, builders and seed_primary
+settings raise NotImplementedError and name the ROADMAP item that ports
+them.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ntrace_tpu_torch.bvh.lbvh import build_lbvh_flat, build_lbvh_packed
 from ntrace_tpu_torch.host import (BuildConfig, Camera, FlatBVH, RenderConfig,
                                    Scene, build_median_bvh, build_sbvh,
                                    flatten_bvh, pack_bvh, trace_cpu_golden)
@@ -38,7 +44,7 @@ from ntrace_tpu_torch.host import pick_layout as _pick_layout
 from ntrace_tpu_torch.ray import raygen
 from ntrace_tpu_torch.ray.pixeltable import pixel_table
 from ntrace_tpu_torch.ray.raybatch import RayBatch, unsort
-from ntrace_tpu_torch.tables import tables_from_packed
+from ntrace_tpu_torch.tables import tables_from_device, tables_from_packed
 from ntrace_tpu_torch.trace import binraster_dense as bd
 from ntrace_tpu_torch.trace.packet import trace_packet
 from ntrace_tpu_torch.utils.timing import StageTimer
@@ -65,16 +71,21 @@ class RenderResult:
     stats: dict = field(default_factory=dict)
 
 
-def build_accel(scene: Scene, cfg: BuildConfig = BuildConfig()) -> FlatBVH:
-    """Host BVH build with the reference's builders; no accel cache."""
+def build_accel(scene: Scene, cfg: BuildConfig = BuildConfig(), *,
+                device="cuda") -> FlatBVH:
+    """BVH build with the reference's builders; no accel cache. The host
+    builders ignore `device`; "lbvh" builds on it and returns a host
+    FlatBVH."""
     if cfg.builder in ("median", "golden"):
         return flatten_bvh(build_median_bvh(scene, cfg), scene)
     if cfg.builder in ("sbvh", "binned_sah"):
         return flatten_bvh(build_sbvh(scene, cfg), scene)
-    if cfg.builder in ("lbvh", "hlbvh"):
+    if cfg.builder == "lbvh":
+        return build_lbvh_flat(scene, cfg, device=device)
+    if cfg.builder == "hlbvh":
         raise NotImplementedError(
-            f"builder {cfg.builder!r} is not ported yet (ROADMAP queue 1, "
-            "item 9: device builders)")
+            "builder 'hlbvh' is not ported yet (ROADMAP queue 1, item 9: "
+            "HLBVH, lbvh_device and build_hlbvh_flat)")
     if cfg.builder == "kdtree":
         raise NotImplementedError(
             "builder 'kdtree' is not ported yet (ROADMAP queue 1, item 10: "
@@ -164,13 +175,30 @@ class Renderer:
             raise NotImplementedError(
                 f"engine {cfg.engine!r} is not ported yet (ROADMAP queue 1, "
                 "items 2, 10, 11)")
-        self.flat = flat if flat is not None else build_accel(
-            scene, build_cfg)
+        # Packed-direct: builder="lbvh" builds the packet kernel's tables
+        # on the device (the reference's path on its accelerator).
+        self.timer = StageTimer(self.device)
+        direct = (flat is None and cfg.engine in ("auto", "packet")
+                  and build_cfg.builder == "lbvh")
+        with self.timer.stage("build"):
+            if direct:
+                self.flat = None
+                self.packed = build_lbvh_packed(
+                    scene, build_cfg, tris_per_row=12, nodes_per_row=1,
+                    device=self.device)
+                p = self.packed
+                self.tables = tables_from_device(
+                    p.nodes8, p.tris12, p.num_nodes, p.nodes_per_row,
+                    p.tris_per_row)
+            else:
+                self.flat = flat if flat is not None else build_accel(
+                    scene, build_cfg, device=self.device)
         if self.engine == "packet":
-            _, _, tpr, npr = pick_layout(self.flat)
-            self.packed = pack_bvh(self.flat, scene.tri_verts(),
-                                   tris_per_row=tpr, nodes_per_row=npr)
-            self.tables = tables_from_packed(self.packed, self.device)
+            if not direct:
+                _, _, tpr, npr = pick_layout(self.flat)
+                self.packed = pack_bvh(self.flat, scene.tri_verts(),
+                                       tris_per_row=tpr, nodes_per_row=npr)
+                self.tables = tables_from_packed(self.packed, self.device)
 
             def tracer(o, d, tn, tx, any_hit):
                 return trace_packet(self.tables, o, d, tn, tx,

@@ -100,7 +100,7 @@ class _RayState:
 
 
 def trace_packet_ref(tables: PackedTables, orig, dirn, tmin, tmax, *,
-                     any_hit: bool = False):
+                     any_hit: bool = False, work: dict | None = None):
     """Plain torch twin of the CUDA kernel, on any device.
 
     Each ray runs the kernel's while-while as a state machine: per lockstep
@@ -108,6 +108,9 @@ def trace_packet_ref(tables: PackedTables, orig, dirn, tmin, tmax, *,
     every ray performs exactly the kernel's sequence of steps, with the same
     stack (clamped at STACK_DEPTH), the same near-first order and the same
     slab and Moller-Trumbore op order (trace/packet_common.py).
+    `work`, when given, counts the kernel's work on these rays into
+    work["node_visits"] and work["tri_slot_tests"] (leaf rows times
+    tris_per_row).
     """
     _check(tables, orig, dirn, tmin, tmax)
     dev = orig.device
@@ -134,11 +137,17 @@ def trace_packet_ref(tables: PackedTables, orig, dirn, tmin, tmax, *,
         stack_ref=torch.zeros((n, STACK_DEPTH), **i32),
         stack_cnt=torch.zeros((n, STACK_DEPTH), **i32))
     lanes16 = torch.arange(16, device=dev)
+    if work is not None:
+        work.setdefault("node_visits", 0)
+        work.setdefault("tri_slot_tests", 0)
     while n:
         s.ref = torch.where(s.steps >= MAX_STEPS,
                             torch.full_like(s.ref, DONE), s.ref)
         inner = torch.nonzero(s.ref >= 0).squeeze(1)
         leaf = torch.nonzero((s.ref < 0) & (s.ref != DONE)).squeeze(1)
+        if work is not None:
+            work["node_visits"] += inner.numel()
+            work["tri_slot_tests"] += int(s.cnt[leaf].sum()) * tpr
         if inner.numel():
             _node_step(s, inner, nodes, npr, lanes16)
         if leaf.numel():

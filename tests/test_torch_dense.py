@@ -352,12 +352,14 @@ def test_c_entry_points_match_ctypes_signatures():
     """Each extern "C" function of csrc/*.cu takes as many arguments as
     its ctypes binding declares (nothing compiles the sources here)."""
     assert [p.name for p in kbuild.sources()] == ["dense_trace.cu",
-                                                  "packet_trace.cu"]
+                                                  "packet_trace.cu",
+                                                  "row_scan.cu"]
     found = {}
     for src in kbuild.sources():
         for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)',
                              src.read_text()):
-            found[m.group(1)] = len(m.group(2).split(","))
+            args = m.group(2).strip()
+            found[m.group(1)] = len(args.split(",")) if args else 0
     assert found == {k: len(v[1]) for k, v in kbuild.SIGNATURES.items()}
 
 

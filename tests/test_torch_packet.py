@@ -87,6 +87,31 @@ def test_twin_anyhit_matches_brute_force(soup_medium, rng, tpr, npr):
     np.testing.assert_array_equal(tri.numpy() >= 0, blocked)
 
 
+def test_twin_counts_its_work(soup_small, rng):
+    """work= counts node visits and slot tests without changing a result:
+    the counts add up over disjoint ray sets, and a ray pointing away from
+    the scene visits the root alone."""
+    tables = tables_from_packed(pack_bvh(_flat(soup_small),
+                                         soup_small.tri_verts()), "cpu")
+    rays = _torch(*random_rays(rng, 300))
+    plain = trace_packet_ref(tables, *rays)
+    work, halves = {}, [{}, {}]
+    counted = trace_packet_ref(tables, *rays, work=work)
+    for a, b in zip(plain, counted):
+        assert torch.equal(a, b)
+    for w, sl in zip(halves, (slice(0, 120), slice(120, 300))):
+        trace_packet_ref(tables, *(a[sl] for a in rays), work=w)
+    assert work == {k: halves[0][k] + halves[1][k] for k in work}
+    assert work["node_visits"] > 300 and work["tri_slot_tests"] > 0
+    assert work["tri_slot_tests"] % tables.tris_per_row == 0
+    away = {}
+    trace_packet_ref(tables, *_torch(np.array([[0, 0, 50]], np.float32),
+                                     np.array([[0, 0, 1]], np.float32),
+                                     np.zeros(1, np.float32),
+                                     np.full(1, 1e9, np.float32)), work=away)
+    assert away == {"node_visits": 1, "tri_slot_tests": 0}
+
+
 def test_twin_dead_rays_keep_miss_record(soup_small, rng):
     packed = pack_bvh(_flat(soup_small), soup_small.tri_verts())
     orig, dirn, tmin, tmax = random_rays(rng, 64)
@@ -163,7 +188,8 @@ def test_library_path_keyed_by_sources():
     assert path.parent == kbuild.BUILD_DIR
     assert path == kbuild.library_path()
     assert [p.name for p in kbuild.sources()] == ["dense_trace.cu",
-                                                  "packet_trace.cu"]
+                                                  "packet_trace.cu",
+                                                  "row_scan.cu"]
     assert "--fmad=false" in kbuild.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in kbuild.NVCC_FLAGS
     assert "--use_fast_math" not in kbuild.NVCC_FLAGS
