@@ -4,11 +4,14 @@
 Drives the port's main paths once, configured as bench.py configures the
 JAX reference: the procedural conference scene (297,024 triangles), a
 binned-SAH BVH (sah_tri_cost=0.02, max_leaf_size=48), and a 1024x768
-primary frame through Renderer.render. Phase 4 traces it with the
-hand-written CUDA traversal kernel (ntrace_tpu_torch/csrc/packet_trace.cu);
-phase 6 with the dense screen-space engine, as bench.py's tuned reference
-does: prep v5 in torch, then the CUDA walk or dma kernel
-(ntrace_tpu_torch/csrc/dense_trace.cu).
+frame through Renderer.render, primary and then each secondary mode at
+the reference's RenderConfig defaults (samples=4, bounces=2). Phase 4
+traces the primary frame with the hand-written CUDA traversal kernel
+(ntrace_tpu_torch/csrc/packet_trace.cu); phase 6 with the dense
+screen-space engine, as bench.py's tuned reference does: prep v5 in
+torch, then the CUDA walk or dma kernel (ntrace_tpu_torch/csrc/
+dense_trace.cu); phases 8 and 9 trace the secondary modes with the packet,
+while-while and speculative while-while kernels.
 
 Phases, each printed as it completes:
   1. versions, card name and power limit (nvidia-smi)
@@ -41,6 +44,27 @@ Phases, each printed as it completes:
      the golden and brute-force oracles and against phase 4's frame on
      every ray; times of the build at both sizes, of each row-scan launch
      beside torch.cummax and the plain version, and of the frame's trace
+  8. the secondary modes on phase 4's renderer (engine packet): render()
+     for shadow, ao (3,145,728 rays at samples=4), diffuse and path
+     (bounces=2), each pass recorded; any-hit passes tri >= 0 against
+     brute_force_anyhit on 256 rays, closest-hit passes against
+     trace_cpu_golden on 4,096 (0 tie-aware mismatches) and brute_force_mt
+     on 256 (exact tri); images finite and not black
+  9. the while-while and speculative while-while kernels
+     (csrc/packet_ww.cu, csrc/packet_ifif.cu): the phase-3 soup check for
+     each; all four modes rendered with engine packet_ww and packet_ifif,
+     every pass on phase 8's rays, closest hits equal to the packet
+     kernel's on tri/t/u/v on every ray, any hits on tri >= 0, images
+     bit-equal to phase 8's; each kernel (packet too) bit-equal to its
+     twin on a 65,536-ray stride sample of every batch; the times of
+     packet, ww and ifif on the primary, shadow, AO and diffuse batches,
+     beside one bound per batch: the least work any of the three twins
+     counts on it (full counts on the primary frame, the sample scaled up
+     on the others); the twins on the primary frame
+ 10. BASELINE config #4: the hairball (2,900,402 tris) with
+     builder="lbvh", built on the card through the row-scan kernel, and
+     render(mode="ao") through the packet kernel; 128 AO rays against
+     brute_force_anyhit; the AO pass time
 Then one JSON line of per-kernel results (with each kernel's bound from
 this run's work), the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises and the script
@@ -56,6 +80,7 @@ import json
 import statistics
 import sys
 import time
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -64,7 +89,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from ntrace_tpu_torch.bvh import lbvh
 from ntrace_tpu_torch.device import describe
-from ntrace_tpu_torch.host import (BuildConfig, RenderConfig, brute_force_mt,
+from ntrace_tpu_torch.host import (BuildConfig, RenderConfig,
+                                   brute_force_anyhit, brute_force_mt,
                                    default_camera, get_scene,
                                    golden_mismatches, make_random_soup,
                                    pack_bvh, trace_cpu_golden)
@@ -77,6 +103,11 @@ from ntrace_tpu_torch.render.renderer import Renderer, build_accel
 from ntrace_tpu_torch.tables import tables_from_packed
 from ntrace_tpu_torch.trace import binraster_dense as bd
 from ntrace_tpu_torch.trace.packet import trace_packet, trace_packet_ref
+from ntrace_tpu_torch.trace.packet_ifif import (trace_packet_ifif,
+                                                trace_packet_ifif_ref)
+from ntrace_tpu_torch.trace.packet_common import read_bytes, work_with_reads
+from ntrace_tpu_torch.trace.packet_ww import (trace_packet_ww,
+                                              trace_packet_ww_ref)
 from ntrace_tpu_torch.utils.timing import cuda_ms
 
 KERNEL_SOURCE = "ntrace_tpu_torch/csrc/packet_trace.cu"
@@ -86,6 +117,23 @@ DENSE_REPLACES = {"walk": "ntrace_tpu/trace/binraster_dense.py:757",
                   "dma": "ntrace_tpu/trace/binraster_dense.py:1022"}
 SCAN_SOURCE = "ntrace_tpu_torch/csrc/row_scan.cu"
 SCAN_REPLACES = "ntrace_tpu/ops/pscan.py:33"
+# The traversal engines of the secondary slice: kernel wrapper, twin,
+# source and the TPU kernel each replaces.
+ENGINES = {
+    "packet": (trace_packet, trace_packet_ref, KERNEL_SOURCE,
+               KERNEL_REPLACES),
+    "packet_ww": (trace_packet_ww, trace_packet_ww_ref,
+                  "ntrace_tpu_torch/csrc/packet_ww.cu",
+                  "ntrace_tpu/trace/packet_ww.py:55"),
+    "packet_ifif": (trace_packet_ifif, trace_packet_ifif_ref,
+                    "ntrace_tpu_torch/csrc/packet_ifif.cu",
+                    "ntrace_tpu/trace/packet_ifif.py:54"),
+}
+VARIANTS = ("packet_ww", "packet_ifif")
+SECONDARY_MODES = ("shadow", "ao", "diffuse", "path")
+SAMPLE_RAYS = 65_536          # stride sample of a batch for twin checks
+ANYHIT_RAYS = 256             # rays of an any-hit pass vs brute_force_anyhit
+HAIR_AO_RAYS = 128
 SCENE_TRIS = 280_000          # get_scene("conference") -> 297,024 tris
 HAIRBALL_TRIS = 2_900_000     # get_scene("hairball") -> 2,900,402 tris
 LBVH_CFG = BuildConfig(builder="lbvh", max_leaf_size=32, sah_tri_cost=0.02)
@@ -171,6 +219,48 @@ def phase_soup(device):
             f"brute_force_mt on {len(sub)}; any-hit tri>=0 equal "
             f"(blocked {float((ka[0] >= 0).float().mean()):.3f}, tri "
             f"{'identical' if torch.equal(ka[0], ta[0]) else 'differs'})")
+
+
+def phase_soup_variants(device):
+    """Phase 9, first check: the phase-3 soup for packet_ww and
+    packet_ifif. Closest hit and any hit bit-equal to the twin (any-hit tri
+    included) at layouts (12, 1) and (4, 8); closest hits equal to the
+    packet kernel's on every ray and exact against brute_force_mt; any-hit
+    tri >= 0 against brute_force_anyhit."""
+    soup = make_random_soup(n_tris=5000, seed=11)
+    flat = build_accel(soup, BuildConfig(builder="binned_sah"))
+    rays_np = random_rays(np.random.default_rng(2024), 65_536)
+    rays = [torch.from_numpy(a).to(device) for a in rays_np]
+    shadow = rays[:3] + [torch.full_like(rays[3], 14.0)]
+    sub = np.arange(0, 65_536, 16)
+    bf = brute_force_mt(soup, *(a[sub] for a in rays_np))
+    blocked = brute_force_anyhit(soup, *(a[sub] for a in rays_np[:3]),
+                                 np.full(len(sub), 14.0, np.float32))
+    for tpr, npr in ((12, 1), (4, 8)):
+        tables = tables_from_packed(
+            pack_bvh(flat, soup.tri_verts(), tris_per_row=tpr,
+                     nodes_per_row=npr), device)
+        packet = trace_packet(tables, *rays)
+        for name in VARIANTS:
+            kernel, twin = ENGINES[name][:2]
+            label = f"soup {name} tpr={tpr} npr={npr}"
+            kern = kernel(tables, *rays)
+            compare(kern, twin(tables, *rays), f"{label} vs twin")
+            compare(kern, packet, f"{label} vs packet kernel")
+            if not np.array_equal(kern[0].cpu().numpy()[sub], bf.tri):
+                raise AssertionError(f"{label}: tri differs from "
+                                     "brute_force_mt")
+            ka = kernel(tables, *shadow, any_hit=True)
+            compare(ka, twin(tables, *shadow, any_hit=True),
+                    f"{label} any-hit vs twin")
+            if not np.array_equal(ka[0].cpu().numpy()[sub] >= 0, blocked):
+                raise AssertionError(f"{label}: any-hit tri>=0 differs from "
+                                     "brute_force_anyhit")
+            log(f"[9] {label}: closest hit bit-equal to the twin and to the "
+                f"packet kernel on all 65536 rays; any hit bit-equal to the "
+                f"twin (tri included, blocked "
+                f"{float((ka[0] >= 0).float().mean()):.3f}); exact vs "
+                f"brute_force_mt and brute_force_anyhit on {len(sub)}")
 
 
 def phase_main_path(device, n_tris=SCENE_TRIS, width=WIDTH, height=HEIGHT):
@@ -271,26 +361,29 @@ def phase_timing(r, batch, smi):
         + ", ".join(f"{t:.1f}" for t in twin_ms)
         + f") = {R / plain_ms / 1e3:.3f} Mrays/s on {smi}; kernel "
         f"tri/t/u/v bit-equal to the twin on every ray")
-    bnd = packet_bound("[5]", r.tables, rays)
     profile_render(r, smi)
     torch.cuda.synchronize()
-    return ms, plain_ms, err, bnd
+    return ms, plain_ms, err
 
 
-def packet_bound(tag, tables, rays):
-    """The packet kernel's bound on these rays: its node visits and slot
-    tests, counted by one more (untimed) twin run, and the bytes of the
-    tables, the rays and the (tri, t, u, v) outputs."""
-    work = {}
-    trace_packet_ref(tables, *rays, work=work)
+def traversal_bound(tables, rays, works, scale=1.0):
+    """The bound of one batch of rays, the same for every schedule that
+    traces it: the least, over `works` (schedule -> its twin's work on
+    these rays, from work_with_reads, counts to be multiplied by `scale`),
+    of the larger of the bytes over the HBM rate and the FP32 operations
+    over the FP32 rate. Bytes: the rays read and (tri, t, u, v) written
+    once, and each node record and triangle row that the twin read, once
+    (for a twin run on a sample, what the sample read: no more than the
+    batch reads). Returns (bound_ms, bound_by, schedule)."""
     R = rays[0].shape[0]
-    ops = (work["node_visits"] * NODE_VISIT_OPS
-           + work["tri_slot_tests"] * MT_OPS)
-    bnd = bound(tables.nbytes() + nbytes(*rays) + 16 * R, ops)
-    log(f"{tag} packet kernel work: {work['node_visits']} node visits, "
-        f"{work['tri_slot_tests']} triangle slot tests, {ops:.4g} FP32 "
-        f"operations; bound {bnd[0]:.4f} ms by {bnd[1]}")
-    return bnd
+    best = None
+    for engine, w in works.items():
+        ops = (w["node_visits"] * NODE_VISIT_OPS
+               + w["tri_slot_tests"] * MT_OPS) * scale
+        b = bound(nbytes(*rays) + 16 * R + read_bytes(tables, w), ops)
+        if best is None or b[0] < best[0]:
+            best = (*b, engine)
+    return best
 
 
 def profile_render(r, smi, tag="[5]"):
@@ -556,7 +649,7 @@ def phase_lbvh_builds(device, conf, hair_tris=HAIRBALL_TRIS):
     bit-equal to the same build on the CPU (through the plain scan), the
     hairball build's two ANSV scans through kernel and plain version, and
     the structure of the hairball build. Returns the inputs on the card
-    of both scenes."""
+    of both scenes and the hairball scene."""
     ml = LBVH_CFG.max_leaf_size
     t0 = time.perf_counter()
     conf_dev = lbvh.device_inputs(conf, device)
@@ -593,7 +686,7 @@ def phase_lbvh_builds(device, conf, hair_tris=HAIRBALL_TRIS):
     del got, want, D
     check_packed(lbvh.build_packed_from(hair_dev, ml), hair.num_tris,
                  "[7] hairball")
-    return conf_dev, hair_dev
+    return conf_dev, hair_dev, hair
 
 
 def phase_lbvh_frame(r, batch):
@@ -718,9 +811,319 @@ def phase_lbvh_timing(rl, batch, conf_dev, hair_dev, smi):
     log(f"[7] LBVH frame: 20 back-to-back trace_packet launches: "
         f"{statistics.median(b2b) / 20:.4f} ms per launch (median of 5 "
         f"runs) on {smi}")
-    packet_bound("[7] LBVH frame:", rl.tables, rays)
+    work = work_with_reads(rl.tables)
+    trace_packet_ref(rl.tables, *rays, work=work)
+    b, by, _ = traversal_bound(rl.tables, rays, {"packet": work})
+    log(f"[7] LBVH frame: packet kernel work {work['node_visits']} node "
+        f"visits, {work['tri_slot_tests']} triangle slot tests; bound "
+        f"{b:.4f} ms by {by}")
     torch.cuda.synchronize()
     return out
+
+
+# -- phases 8-10: the secondary passes -------------------------------------
+
+PASSES = {"shadow": ("primary", "shadow"), "ao": ("primary", "ao"),
+          "diffuse": ("primary", "diffuse"),
+          "path": ("primary", "bounce0", "bounce1")}
+
+
+def reset_counts():
+    for kernel, *_ in ENGINES.values():
+        kernel.launches = 0
+    row_scan_i32.launches = 0
+
+
+def launch_counts() -> dict:
+    return {**{name: e[0].launches for name, e in ENGINES.items()},
+            "row_scan": row_scan_i32.launches}
+
+
+@contextmanager
+def recorded(r):
+    """Keep every pass the renderer traces, as (rays, any_hit, hits) in the
+    order render() traces them. The tracer is the renderer's own; this
+    only records its inputs and outputs."""
+    passes = []
+    base = r._tracer
+
+    def tracer(o, d, tn, tx, any_hit):
+        out = base(o, d, tn, tx, any_hit)
+        passes.append(((o, d, tn, tx), any_hit, out))
+        return out
+
+    r._tracer = tracer
+    try:
+        yield passes
+    finally:
+        r._tracer = base
+
+
+def check_image(tag, img, width, height):
+    if img.shape != (height, width, 3) or not np.isfinite(img).all() \
+            or not img.max() > 0:
+        raise AssertionError(f"{tag}: bad or black image")
+
+
+def check_pass(tag, scene, flat, rays, any_hit, hits):
+    """One traced pass against the CPU oracles: any hit, tri >= 0 against
+    brute_force_anyhit on ANYHIT_RAYS stride-sampled rays; closest hit, 0
+    tie-aware mismatches against trace_cpu_golden on GOLDEN_RAYS and exact
+    tri against brute_force_mt on BRUTE_RAYS."""
+    host = [a.cpu().numpy() for a in rays]
+    tri, t = hits[0].cpu().numpy(), hits[1].cpu().numpy()
+    R = len(tri)
+    if any_hit:
+        sub = np.arange(0, R, max(R // ANYHIT_RAYS, 1))
+        blocked = brute_force_anyhit(scene, *(a[sub] for a in host))
+        if not np.array_equal(tri[sub] >= 0, blocked):
+            raise AssertionError(f"{tag}: any-hit tri>=0 differs from "
+                                 f"brute_force_anyhit on "
+                                 f"{int(((tri[sub] >= 0) != blocked).sum())}")
+        log(f"{tag}: {R} rays, any hit; tri>=0 equal to brute_force_anyhit "
+            f"on {len(sub)} (blocked {blocked.mean():.4f})")
+        return
+    sub = np.arange(0, R, max(R // GOLDEN_RAYS, 1))
+    rec = trace_cpu_golden(flat, *(a[sub] for a in host))
+    mism = golden_mismatches(tri[sub], t[sub], rec.tri, rec.t)
+    if mism:
+        raise AssertionError(f"{tag}: {mism} tie-aware golden mismatches")
+    sub2 = np.arange(0, R, max(R // BRUTE_RAYS, 1))
+    bf = brute_force_mt(scene, *(a[sub2] for a in host))
+    if not np.array_equal(tri[sub2], bf.tri):
+        raise AssertionError(f"{tag}: tri differs from brute_force_mt on "
+                             f"{int((tri[sub2] != bf.tri).sum())}")
+    log(f"{tag}: {R} rays, closest hit (hit rate {(tri >= 0).mean():.4f}); "
+        f"0 tie-aware mismatches vs trace_cpu_golden on {len(sub)}; tri "
+        f"exact vs brute_force_mt on {len(sub2)}")
+
+
+def render_recorded(r, mode, camera):
+    """render(mode) with the launch counts set to 0 just before and read
+    just after; returns the result, the counts and the passes by name."""
+    reset_counts()
+    with recorded(r) as passes:
+        res = r.render(camera, mode)
+    counts = launch_counts()
+    names = PASSES[mode]
+    if len(passes) != len(names):
+        raise AssertionError(f"render({mode}) traced {len(passes)} passes, "
+                             f"want {names}")
+    return res, counts, dict(zip(names, passes))
+
+
+def phase_secondary(r, smi):
+    """Phase 8: render() of every secondary mode on phase 4's renderer
+    (engine packet), every traced pass held to the oracles; then one warm
+    AO and one warm diffuse frame under the profiler. Returns the results
+    and passes by mode."""
+    camera = default_camera("conference")
+    out = {}
+    for mode in SECONDARY_MODES:
+        res, counts, passes = render_recorded(r, mode, camera)
+        if counts["packet"] != len(passes) or counts["packet_ww"] \
+                or counts["packet_ifif"]:
+            raise AssertionError(f"render({mode}): launches {counts}, want "
+                                 f"{len(passes)} packet launches")
+        check_image(f"[8] render({mode})", res.image, r.cfg.width,
+                    r.cfg.height)
+        log(f"[8] render({mode}): launches "
+            + json.dumps({k: v for k, v in counts.items() if v})
+            + f", image mean {res.image.mean():.4f}, stages "
+            + json.dumps({k: round(v, 3) for k, v in res.stats.items()}))
+        for name, (rays, any_hit, hits) in list(passes.items())[1:]:
+            check_pass(f"[8] {mode} pass {name}", r.scene, r.flat, rays,
+                       any_hit, hits)
+        out[mode] = (res, passes)
+    for mode in ("ao", "diffuse"):
+        profile_once(f"[8] profile of one warm render({mode})",
+                     lambda: r.render(camera, mode), smi, top=10)
+    return out
+
+
+def same_rays(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def phase_variant_renders(r, secondary):
+    """Phase 9: every secondary mode rendered with engine packet_ww and
+    packet_ifif on phase 4's scene and BVH. Each pass traces the same rays
+    as phase 8's; closest-hit passes equal phase 8's on tri/t/u/v on every
+    ray, any-hit passes on tri >= 0; images bit-equal. Returns the
+    launches of each kernel over its four renders."""
+    camera = default_camera("conference")
+    launches = {}
+    for name in VARIANTS:
+        cfg = RenderConfig(width=r.cfg.width, height=r.cfg.height,
+                           engine=name)
+        rv = Renderer(r.scene, BuildConfig(), cfg, flat=r.flat,
+                      device=r.device)
+        if not (torch.equal(rv.tables.nodes8, r.tables.nodes8)
+                and torch.equal(rv.tables.tris12, r.tables.tris12)):
+            raise AssertionError(f"{name}: tables differ from phase 4's")
+        launches[name] = 0
+        for mode in SECONDARY_MODES:
+            res, counts, passes = render_recorded(rv, mode, camera)
+            others = sum(counts[k] for k in ENGINES if k != name)
+            if counts[name] != len(passes) or others:
+                raise AssertionError(f"{name} render({mode}): launches "
+                                     f"{counts}")
+            launches[name] += counts[name]
+            ref_res, ref_passes = secondary[mode]
+            for pname, (rays, any_hit, hits) in passes.items():
+                rrays, rany, rhits = ref_passes[pname]
+                tag = f"[9] {name} {mode} pass {pname}"
+                if any_hit != rany or not same_rays(rays, rrays):
+                    raise AssertionError(f"{tag}: not phase 8's rays")
+                if any_hit:
+                    if not torch.equal(hits[0] >= 0, rhits[0] >= 0):
+                        raise AssertionError(f"{tag}: tri>=0 differs from "
+                                             "the packet kernel's")
+                else:
+                    compare(hits, rhits, f"{tag} vs packet kernel")
+            if not np.array_equal(res.image, ref_res.image):
+                raise AssertionError(f"[9] {name} render({mode}): image "
+                                     "differs from phase 8's")
+            log(f"[9] {name} render({mode}): {counts[name]} launches; "
+                f"{len(passes)} passes on phase 8's rays, closest hits "
+                "tri/t/u/v equal to the packet kernel's on every ray, any "
+                "hits tri>=0 equal; image bit-equal to phase 8's; stages "
+                + json.dumps({k: round(v, 3) for k, v in res.stats.items()}))
+    return launches
+
+
+def stride_sample(rays, n=SAMPLE_RAYS):
+    R = rays[0].shape[0]
+    idx = torch.arange(0, R, max(R // n, 1), device=rays[0].device)[:n]
+    return [a[idx] for a in rays], R / len(idx)
+
+
+def phase_variant_twins(tables, secondary):
+    """Phase 9: each kernel (packet, ww, ifif) bit-equal to its twin on a
+    SAMPLE_RAYS stride sample of every traced batch (any-hit tri
+    included), and each twin's work on that sample (work_with_reads) for
+    the per-batch bounds. Returns, by batch, the factor that scales the
+    sample's counts to the batch and the work by schedule."""
+    works = {}
+    batches = [("primary", secondary["shadow"][1]["primary"])] + [
+        (p, secondary[m][1][p]) for m in SECONDARY_MODES
+        for p in PASSES[m][1:]]
+    for bname, (rays, any_hit, _) in batches:
+        sample, scale = stride_sample(rays)
+        works[bname] = (scale, {})
+        for engine, (kernel, twin, *_) in ENGINES.items():
+            work = work_with_reads(tables)
+            t0 = time.perf_counter()
+            tw = twin(tables, *sample, any_hit=any_hit, work=work)
+            twin_s = time.perf_counter() - t0
+            compare(kernel(tables, *sample, any_hit=any_hit), tw,
+                    f"[9] {engine} on the {bname} sample vs twin")
+            works[bname][1][engine] = work
+            log(f"[9] {engine} {bname}: kernel bit-equal to twin on a "
+                f"{len(sample[0])}-ray stride sample of {rays[0].shape[0]} "
+                f"({'any' if any_hit else 'closest'} hit, tri included; "
+                f"twin {twin_s:.2f} s); per ray "
+                f"{work['node_visits'] / len(sample[0]):.2f} node visits, "
+                f"{work['tri_slot_tests'] / len(sample[0]):.2f} slot tests")
+    return works
+
+
+def phase_variant_timing(tables, primary, secondary, works, smi):
+    """Phase 9 times, CUDA events, warm, medians of 10: each of packet, ww
+    and ifif on phase 5's primary frame and the shadow, AO and diffuse
+    batches, beside the batch's bound (traversal_bound: the least work of
+    any schedule). The primary frame's bound comes from each twin's full
+    count, the others' from the sampled work. Then each new kernel's twin
+    on the primary frame (median of 3). Returns the primary bound and the
+    new kernels' rows for the kernels line."""
+    full = {}
+    for engine, (_, twin, *_) in ENGINES.items():
+        full[engine] = work_with_reads(tables)
+        twin(tables, *primary, work=full[engine])
+        log(f"[9] {engine} primary frame, full count: "
+            f"{full[engine]['node_visits']} node visits, "
+            f"{full[engine]['tri_slot_tests']} slot tests")
+    batches = {"primary": (primary, False, (1.0, full)),
+               "shadow": secondary["shadow"][1]["shadow"][:2]
+               + (works["shadow"],),
+               "ao": secondary["ao"][1]["ao"][:2] + (works["ao"],),
+               "diffuse": secondary["diffuse"][1]["diffuse"][:2]
+               + (works["diffuse"],)}
+    times, bounds = {}, {}
+    for bname, (rays, any_hit, (scale, bw)) in batches.items():
+        R = rays[0].shape[0]
+        b, by, least = bounds[bname] = traversal_bound(tables, rays, bw,
+                                                       scale)
+        log(f"[9] {bname} batch, {R} rays, "
+            f"{'any' if any_hit else 'closest'} hit: bound {b:.4f} ms by "
+            f"{by} (the least work, {least}'s; "
+            + ("full count" if bname == "primary" else "sampled work") + ")")
+        for engine, (kernel, *_) in ENGINES.items():
+            t = cuda_ms(lambda: kernel(tables, *rays, any_hit=any_hit),
+                        warmup=2, iters=10)
+            ms = statistics.median(t)
+            times[bname, engine] = ms
+            log(f"[9] {bname} batch: {engine} median {ms:.4f} ms of 10 (min "
+                f"{min(t):.4f}, max {max(t):.4f}) = {R / ms / 1e3:.2f} "
+                f"Mrays/s, {ms / b:.1f}x the batch's bound; on {smi}")
+    rows = {}
+    for engine in VARIANTS:
+        twin = ENGINES[engine][1]
+        t = cuda_ms(lambda: twin(tables, *primary), warmup=0, iters=3)
+        rows[engine] = {"ms": times["primary", engine],
+                        "plain_ms": statistics.median(t),
+                        "bound": bounds["primary"][:2]}
+        log(f"[9] {engine} primary frame: twin median "
+            f"{rows[engine]['plain_ms']:.1f} ms of 3 ("
+            + ", ".join(f"{x:.1f}" for x in t) + f"); kernel "
+            f"{rows[engine]['ms']:.4f} ms on {smi}")
+    torch.cuda.synchronize()
+    return bounds["primary"][:2], rows
+
+
+def phase_hairball_ao(device, hair, smi, width=WIDTH, height=HEIGHT):
+    """Phase 10, BASELINE config #4: the hairball at 2,900,402 tris,
+    builder="lbvh" (max_leaf_size 32) with engine "auto", so the renderer
+    builds the tables on the card through the row-scan kernel, and
+    render(mode="ao") traces through the packet kernel. The counts are set
+    to 0 before the renderer is made and read after the frame. HAIR_AO_RAYS
+    stride-sampled AO rays against brute_force_anyhit; the AO pass time."""
+    camera = default_camera("hairball")
+    reset_counts()
+    rh = Renderer(hair, LBVH_CFG, RenderConfig(width=width, height=height,
+                                               mode="ao", engine="auto"),
+                  device=device)
+    with recorded(rh) as passes:
+        res = rh.render(camera)
+    counts = launch_counts()
+    if rh.flat is not None or counts["row_scan"] < 2 \
+            or counts["packet"] != 2 or len(passes) != 2:
+        raise AssertionError(f"hairball AO skipped a kernel: {counts}")
+    check_image("[10] hairball AO", res.image, width, height)
+    rays, any_hit, hits = passes[1]
+    host = [a.cpu().numpy() for a in rays]
+    R = len(host[0])
+    sub = np.arange(0, R, max(R // HAIR_AO_RAYS, 1))[:HAIR_AO_RAYS]
+    blocked = brute_force_anyhit(hair, *(a[sub] for a in host))
+    tri = hits[0].cpu().numpy()[sub]
+    if not any_hit or not np.array_equal(tri >= 0, blocked):
+        raise AssertionError("[10] hairball AO: tri>=0 differs from "
+                             "brute_force_anyhit")
+    st = res.stats
+    t = cuda_ms(lambda: trace_packet(rh.tables, *rays, any_hit=True),
+                warmup=2, iters=10)
+    ms = statistics.median(t)
+    log(f"[10] hairball AO ({hair.num_tris} tris, {rh.tables.num_nodes} "
+        f"nodes, build {rh.timer.ms()['build']:.1f} ms): launches "
+        + json.dumps({k: v for k, v in counts.items() if v})
+        + f"; AO pass {st['rays_ao']:.0f} rays ({R} live, traced), "
+        f"trace_ao {st['trace_ao']:.3f} ms = {st['mrays_ao']:.2f} Mrays/s; "
+        f"the kernel alone on the live rays median {ms:.4f} ms of 10 = "
+        f"{R / ms / 1e3:.2f} Mrays/s; tri>=0 equal to brute_force_anyhit on "
+        f"{len(sub)} (blocked {blocked.mean():.4f}); image mean "
+        f"{res.image.mean():.4f}; stages "
+        + json.dumps({k: round(v, 3) for k, v in st.items()}) + f" on {smi}")
+    return counts
 
 
 def main():
@@ -741,7 +1144,7 @@ def main():
     device = torch.device("cuda")
     phase_soup(device)
     r, batch, launches = phase_main_path(device)
-    ms, plain_ms, err, packet_bnd = phase_timing(r, batch, smi)
+    ms, plain_ms, err = phase_timing(r, batch, smi)
     rd, ca, ops, kw, dense_launches, dense_err, dense_bnd = phase_dense(
         r, batch)
     if min(dense_launches.values()) < 1:
@@ -750,17 +1153,28 @@ def main():
     dense_ms = phase_dense_timing(rd, ca, batch, ops, kw, smi)
     del rd, ops
     scan_err = phase_scan_kernel(device)
-    conf_dev, hair_dev = phase_lbvh_builds(device, r.scene)
+    conf_dev, hair_dev, hair = phase_lbvh_builds(device, r.scene)
     rl, lbvh_counts = phase_lbvh_frame(r, batch)
     lbvh_ms = phase_lbvh_timing(rl, batch, conf_dev, hair_dev, smi)
     conf = lbvh_ms["conference"]
+    del rl, conf_dev, hair_dev
+
+    secondary = phase_secondary(r, smi)
+    phase_soup_variants(device)
+    variant_launches = phase_variant_renders(r, secondary)
+    works = phase_variant_twins(r.tables, secondary)
+    primary_bnd, variant_rows = phase_variant_timing(
+        r.tables, (batch.orig, batch.dirn, batch.tmin, batch.tmax),
+        secondary, works, smi)
+    del secondary
+    phase_hairball_ao(device, hair, smi)
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     kernels = [{
         "name": "packet_trace", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches,
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": packet_bnd[0], "bound_by": packet_bnd[1],
+        "bound_ms": primary_bnd[0], "bound_by": primary_bnd[1],
         "library_ms": None}]
     for k in ("walk", "dma"):
         kernels.append({
@@ -775,6 +1189,14 @@ def main():
         "max_abs_err": scan_err, "ms": conf["max"],
         "plain_ms": conf["plain"], "bound_ms": conf["bound"][0],
         "bound_by": conf["bound"][1], "library_ms": conf["library"]})
+    for name in VARIANTS:
+        row = variant_rows[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": ENGINES[name][2],
+            "replaces": ENGINES[name][3], "launches": variant_launches[name],
+            "max_abs_err": 0.0, "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound"][0], "bound_by": row["bound"][1],
+            "library_ms": None})
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

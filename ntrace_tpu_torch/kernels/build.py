@@ -38,11 +38,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> (restype, argtypes). Pointers and the stream are
 # c_void_p (a bare Python int would be cut to 32 bits), ints are c_int.
+_TRAVERSAL = (ctypes.c_int,
+              [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P])
 SIGNATURES = {
-    "ntrace_packet_trace": (
-        ctypes.c_int,
-        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
-    ),
+    # packet_trace.cu, packet_ww.cu, packet_ifif.cu: one signature
+    # (csrc/trace_common.cuh NTRACE_TRAVERSAL_ENTRY).
+    "ntrace_packet_trace": _TRAVERSAL,
+    "ntrace_packet_ww": _TRAVERSAL,
+    "ntrace_packet_ifif": _TRAVERSAL,
     "ntrace_dense_walk": (
         ctypes.c_int,
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],

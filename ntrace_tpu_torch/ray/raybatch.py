@@ -1,10 +1,22 @@
-"""RayBatch on torch tensors (counterpart of ntrace_tpu/ray/raybatch.py)."""
+"""RayBatch on torch tensors and the Morton re-sort of secondary rays
+(counterpart of ntrace_tpu/ray/raybatch.py: `_direction_octant` 44-50,
+`morton_sort_key` 53-86, `morton_sort_rays` 89-112, `unsort` 115-124).
+
+The sort keys are int32 and bit-equal to the reference's; the sort is
+stable, as `jnp.argsort` is, so equal keys keep their order and the
+permutation is the reference's. Dead rays (tmax <= tmin) take the key
+0x7FFFFFFF and so sort last.
+"""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import torch
+
+from ntrace_tpu_torch.ops.morton import morton_codes_3d
+
+DEAD_KEY = 0x7FFFFFFF
 
 
 @dataclass
@@ -20,8 +32,56 @@ class RayBatch:
         return int(self.orig.shape[0])
 
 
+def _direction_octant(dirn: torch.Tensor) -> torch.Tensor:
+    """3-bit direction octant code (sign bits of x, y, z), int32."""
+    return ((dirn[:, 0] < 0).to(torch.int32) * 4
+            + (dirn[:, 1] < 0).to(torch.int32) * 2
+            + (dirn[:, 2] < 0).to(torch.int32))
+
+
+def morton_sort_key(orig: torch.Tensor, dirn: torch.Tensor,
+                    scene_lo: torch.Tensor, scene_hi: torch.Tensor,
+                    direction_major: bool = True) -> torch.Tensor:
+    """Coherence sort key (int32). direction_major=True: a 6-bit direction
+    code (2 bits per axis, interleaved) above the origin's Morton code, for
+    long bounce rays; False: the origin's Morton code with the direction
+    octant in the low 3 bits, for short (AO) rays."""
+    oc = morton_codes_3d(orig, scene_lo, scene_hi)
+    if not direction_major:
+        return (oc & ~7) | _direction_octant(dirn)
+    norm = torch.sqrt(dirn[:, 0] * dirn[:, 0] + dirn[:, 1] * dirn[:, 1]
+                      + dirn[:, 2] * dirn[:, 2])[:, None]
+    unit = dirn / torch.clamp_min(norm, 1e-30)
+    n2 = ((unit + 1.0) * 2.0).to(torch.int32).clamp(0, 3)
+    dir6 = torch.zeros_like(oc)
+    for b in range(2):
+        dir6 = (dir6
+                | ((n2[:, 0] >> b) & 1) << (3 * b + 2)
+                | ((n2[:, 1] >> b) & 1) << (3 * b + 1)
+                | ((n2[:, 2] >> b) & 1) << (3 * b + 0))
+    return (dir6 << 25) | (oc >> 5)
+
+
+def morton_sort_rays(batch: RayBatch, scene_lo: torch.Tensor,
+                     scene_hi: torch.Tensor,
+                     direction_major: bool = True) -> RayBatch:
+    """A new RayBatch sorted for coherence, dead rays last, with slot_to_id
+    carried along."""
+    key = morton_sort_key(batch.orig, batch.dirn, scene_lo, scene_hi,
+                          direction_major=direction_major)
+    key = torch.where(batch.tmax <= batch.tmin, DEAD_KEY, key)
+    order = torch.argsort(key, stable=True)
+    ids = batch.slot_to_id
+    if ids is None:
+        ids = torch.arange(batch.num_rays, dtype=torch.int32,
+                           device=key.device)
+    return RayBatch(orig=batch.orig[order], dirn=batch.dirn[order],
+                    tmin=batch.tmin[order], tmax=batch.tmax[order],
+                    slot_to_id=ids[order])
+
+
 def unsort(values: torch.Tensor, slot_to_id: torch.Tensor) -> torch.Tensor:
-    """Scatter per-slot values back to ray-id order."""
+    """Scatter per-slot values, (R,) or (R, k), back to ray-id order."""
     out = torch.empty_like(values)
     out[slot_to_id.long()] = values
     return out

@@ -1,8 +1,13 @@
-"""Primary ray generation (counterpart of ntrace_tpu/ray/raygen.py:25-67).
+"""Ray generation (counterpart of ntrace_tpu/ray/raygen.py).
 
-The op order is the reference's: the NDC formula, the basis combination
-summed left to right, then d / ||d|| with ||d|| = sqrt((x*x + y*y) + z*z).
-Secondary generators (shadow, ao, diffuse) are not ported yet.
+`camera_arrays` and `primary` (25-67): the NDC formula, the basis
+combination summed left to right, then d / ||d|| with
+||d|| = sqrt((x*x + y*y) + z*z). The secondary generators `_onb`,
+`cosine_hemisphere`, `surface_frame`, `shadow`, `ao` and `diffuse`
+(70-146) keep the reference's op order; their random numbers come from
+`ray/rng.py`, bit-equal to jax.random. cos, sin and sqrt of torch and of
+XLA on the CPU may differ in the last bit, so directions agree with the
+reference within a few ulps, not bit for bit.
 """
 
 from __future__ import annotations
@@ -11,6 +16,7 @@ import numpy as np
 import torch
 
 from ntrace_tpu_torch.host import Camera
+from ntrace_tpu_torch.ray import rng
 from ntrace_tpu_torch.ray.raybatch import RayBatch
 
 
@@ -43,6 +49,11 @@ def norm3(d: torch.Tensor) -> torch.Tensor:
                       + d[:, 2] * d[:, 2])[:, None]
 
 
+def dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(R, 3), (R, 3) -> (R,) dot products, summed x, y, z in that order."""
+    return a[:, 0] * b[:, 0] + a[:, 1] * b[:, 1] + a[:, 2] * b[:, 2]
+
+
 def primary(cam: dict, width: int, height: int,
             pixel_order: torch.Tensor) -> RayBatch:
     """One ray per pixel in the slot order of `pixel_order` ((W*H,) int32,
@@ -64,3 +75,75 @@ def primary(cam: dict, width: int, height: int,
         tmax=cam["zfar"].expand(n).contiguous(),
         slot_to_id=p.to(torch.int32),
     )
+
+
+def _onb(n: torch.Tensor):
+    """Branchless orthonormal basis around unit normals n (..., 3) (Duff
+    et al. 2017)."""
+    n0, n1, n2 = n[..., 0], n[..., 1], n[..., 2]
+    sign = torch.where(n2 >= 0, 1.0, -1.0)
+    a = -1.0 / (sign + n2)
+    b = n0 * n1 * a
+    b1 = torch.stack([1.0 + sign * n0 * n0 * a, sign * b, -sign * n0], dim=-1)
+    b2 = torch.stack([b, sign + n1 * n1 * a, -n1], dim=-1)
+    return b1, b2
+
+
+def cosine_hemisphere(key: torch.Tensor, n: torch.Tensor, shape: tuple):
+    """Cosine-weighted directions about unit normals n, broadcast to
+    shape + (3,); key is an rng key on n's device."""
+    u = rng.uniform(key, tuple(shape) + (2,))
+    r = torch.sqrt(u[..., 0])
+    phi = float(np.float32(2.0 * np.pi)) * u[..., 1]
+    lx = r * torch.cos(phi)
+    ly = r * torch.sin(phi)
+    lz = torch.sqrt(torch.clamp_min(1.0 - u[..., 0], 0.0))
+    b1, b2 = _onb(n)
+    return lx[..., None] * b1 + ly[..., None] * b2 + lz[..., None] * n
+
+
+def surface_frame(hit_tri: torch.Tensor, dirn: torch.Tensor,
+                  geom_normals: torch.Tensor, eps_scale: float):
+    """Unit geometric normal of each hit, flipped against the incoming ray,
+    and the self-intersection offset magnitude."""
+    gn = geom_normals[hit_tri.clamp(min=0).long()]
+    gn = gn / (norm3(gn) + 1e-30)
+    flip = dot3(gn, dirn) > 0
+    return torch.where(flip[:, None], -gn, gn), float(np.float32(eps_scale))
+
+
+def shadow(hit_pos: torch.Tensor, normal: torch.Tensor,
+           light_pos: torch.Tensor, eps) -> RayBatch:
+    """Any-hit rays from surface points toward a point light."""
+    o = hit_pos + normal * eps
+    to_l = light_pos[None, :] - o
+    dist = norm3(to_l)[:, 0]
+    d = to_l / (dist[:, None] + 1e-30)
+    r = o.shape[0]
+    return RayBatch(
+        orig=o, dirn=d,
+        tmin=torch.zeros((r,), dtype=torch.float32, device=o.device),
+        tmax=dist * float(np.float32(1.0 - 1e-4)),
+        slot_to_id=torch.arange(r, dtype=torch.int32, device=o.device))
+
+
+def ao(key: torch.Tensor, hit_pos: torch.Tensor, normal: torch.Tensor,
+       samples: int, radius, eps) -> RayBatch:
+    """`samples` cosine-weighted rays per surface point, tmax = radius
+    (any-hit). Ray i * samples + s belongs to surface point i."""
+    r = hit_pos.shape[0]
+    d = cosine_hemisphere(key, normal[:, None, :], (r, samples)).reshape(-1, 3)
+    o = torch.repeat_interleave(hit_pos + normal * eps, samples, dim=0)
+    n = r * samples
+    return RayBatch(
+        orig=o, dirn=d,
+        tmin=torch.zeros((n,), dtype=torch.float32, device=o.device),
+        tmax=torch.full((n,), float(np.float32(radius)), dtype=torch.float32,
+                        device=o.device),
+        slot_to_id=torch.arange(n, dtype=torch.int32, device=o.device))
+
+
+def diffuse(key: torch.Tensor, hit_pos: torch.Tensor, normal: torch.Tensor,
+            samples: int, tfar, eps) -> RayBatch:
+    """Cosine-weighted bounce rays (closest hit): the incoherent workload."""
+    return ao(key, hit_pos, normal, samples, tfar, eps)

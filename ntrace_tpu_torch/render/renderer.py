@@ -1,30 +1,40 @@
-"""Per-frame orchestration for primary rays: build -> raygen -> trace -> shade.
+"""Per-frame orchestration: build -> raygen -> trace -> secondary -> shade.
 
-Counterpart of the primary-frame slice of ntrace_tpu/render/renderer.py:
-`build_accel` (165-197), `normal_color` (200-210), `_trace_batched`
-(337-364), the engine resolution of `Renderer.__init__` (404-440, 597-664,
-689-698) with the packed-direct LBVH path (404-433, 613-619),
-`trace_primary` (1136-1188, the seed_primary="off" path),
-`_cap` (1203-1208) and `render(mode="primary")` (1256-1394), and the dense
-screen-space primary engine: `prepare_primary` (924-930, 966-1027),
-`_dense_prep`, `freeze_primary_structure`, `_trace_binraster_dense`
-(1029-1109) and `_binraster_contract_ok` (1190-1201).
+Counterpart of ntrace_tpu/render/renderer.py: `build_accel` (165-197),
+`normal_color` (200-210), `shadow_mix` (213), `_trace_batched`
+(337-364), `_compact_trace` (367-401), the engine resolution of
+`Renderer.__init__` (404-440, 597-698) with the packed-direct LBVH path
+(404-433, 613-619) and the scene state (725-736), `trace_primary`
+(1136-1188, the seed_primary="off" path), `_cap` (1203-1208),
+`_unit_normals` (1212), `gen_secondary` (1221-1254), `render` (1256-1394)
+for the modes primary, shadow, ao, diffuse and path, `_default_light`
+(1396-1402), the plain-tracer branch of `_secondary_tracer` (1448-1492)
+and `_path_trace` (1494-1548); and the dense screen-space primary engine:
+`prepare_primary` (924-930, 966-1027), `_dense_prep`,
+`freeze_primary_structure`, `_trace_binraster_dense` (1029-1109) and
+`_binraster_contract_ok` (1190-1201).
 
-Every engine name that resolves to the packet BVH kernel ("auto",
-"wavefront", "packet") traces through `trace/packet.py`: the CUDA kernel on
-a CUDA device, its torch twin on the CPU. "cpu_golden" runs the host golden
-tracer. engine="binraster_dense" arms the dense engine
-(`trace/binraster_dense.py`) for canonical primary frames and keeps the
-packet kernel for every other ray. The port reads no tuned.json (its
-entries were measured on a TPU): the dense engine's settings are the
-reference renderer's code defaults (the DENSE_* constants), and "auto"
-means the packet kernel alone. There is one packed table on the device, no
-forest. builder="lbvh" with engine "auto" or "packet" and no `flat` takes
-the packed-direct path on every device: the tables are built on the
-renderer's device (bvh/lbvh.py:build_lbvh_packed) and traced in place, and
-`self.flat` is None. Other modes, engines, builders and seed_primary
-settings raise NotImplementedError and name the ROADMAP item that ports
-them.
+Engines. "auto", "wavefront" and "packet" trace through
+`trace/packet.py`; "packet_ww" and "packet_ifif" through
+`trace/packet_ww.py` and `trace/packet_ifif.py` (the registry's
+tesla_persistent_while_while and tesla_persistent_speculative_while_while,
+`trace/registry.py`); each runs its CUDA kernel on a CUDA device and its
+torch twin on the CPU, over one packed table on the device (no forest).
+"cpu_golden" runs the host golden tracer. engine="binraster_dense" arms
+the dense engine (`trace/binraster_dense.py`) for canonical primary frames
+and keeps the packet kernel for every other ray. The port reads no
+tuned.json (its entries were measured on a TPU): the dense engine's
+settings are the reference renderer's code defaults (the DENSE_*
+constants), "auto" means the packet kernel alone, and seed_secondary and
+stage_secondary "auto" mean off. builder="lbvh" with engine "auto" or
+"packet" and no `flat` takes the packed-direct path on every device: the
+tables are built on the renderer's device (bvh/lbvh.py:build_lbvh_packed)
+and traced in place, and `self.flat` is None; with packet_ww or
+packet_ifif it takes the flat route (build_lbvh_flat, then the host pack),
+as the reference does. Secondary rays draw their random numbers from
+`ray/rng.py`, bit-equal to the reference's jax.random. Other modes,
+engines, builders and options raise NotImplementedError and name the
+ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -41,15 +51,33 @@ from ntrace_tpu_torch.host import (BuildConfig, Camera, FlatBVH, RenderConfig,
                                    Scene, build_median_bvh, build_sbvh,
                                    flatten_bvh, pack_bvh, trace_cpu_golden)
 from ntrace_tpu_torch.host import pick_layout as _pick_layout
-from ntrace_tpu_torch.ray import raygen
+from ntrace_tpu_torch.ray import raygen, rng
 from ntrace_tpu_torch.ray.pixeltable import pixel_table
-from ntrace_tpu_torch.ray.raybatch import RayBatch, unsort
+from ntrace_tpu_torch.ray.raybatch import RayBatch, morton_sort_rays, unsort
 from ntrace_tpu_torch.tables import tables_from_device, tables_from_packed
 from ntrace_tpu_torch.trace import binraster_dense as bd
 from ntrace_tpu_torch.trace.packet import trace_packet
+from ntrace_tpu_torch.trace.packet_ifif import trace_packet_ifif
+from ntrace_tpu_torch.trace.packet_ww import trace_packet_ww
 from ntrace_tpu_torch.utils.timing import StageTimer
 
 PACKET_ENGINES = ("auto", "wavefront", "packet")
+# Engines that trace the packed tables, by the name the renderer keeps.
+TABLE_TRACERS = {"packet": trace_packet, "packet_ww": trace_packet_ww,
+                 "packet_ifif": trace_packet_ifif}
+# The reference's other engines, and the ROADMAP item that ports each.
+UNPORTED_ENGINES = {
+    "stack": "queue 1, item 2: the stack2 engine",
+    "stack2": "queue 1, item 2: the stack2 engine",
+    "bvh8": "queue 1, item 10: other engines",
+    "kdtree": "queue 1, item 10: other engines",
+    "binraster": "queue 2: the v1 screen-space engine, binraster_prep_fast "
+                 "and its kernel",
+    **{e: "queue 2: the rest of the packet family"
+       for e in ("packet_pipe", "packet_wide", "packet_bfs", "packet_dleaf",
+                 "packet_bdl")},
+}
+MODES = ("primary", "shadow", "ao", "diffuse", "path")
 # The dense engine's settings: the reference renderer's code defaults for
 # what it reads from tuned.json (br2_tile, br2_kcap, br2_ez,
 # br2_max_pairs). The prep is always v5.
@@ -111,6 +139,11 @@ def normal_color(geom_normals: torch.Tensor, hit_tri: torch.Tensor):
                        torch.zeros_like(gn))
 
 
+def shadow_mix(base_col: torch.Tensor, lit: torch.Tensor) -> torch.Tensor:
+    """The reference's shadow-mode mix: 25% ambient + 75% direct."""
+    return base_col * (0.25 + 0.75 * lit)[:, None]
+
+
 def _trace_batched(tracer, batch: RayBatch, cap: int, any_hit: bool):
     """Loop the tracer over <= cap-ray chunks (the in-flight ray cap).
 
@@ -134,6 +167,40 @@ def _trace_batched(tracer, batch: RayBatch, cap: int, any_hit: bool):
             cap //= 2
             print(f"[renderer] device OOM; retrying with ray cap {cap}",
                   file=sys.stderr)
+
+
+def _compact_trace(tracer, batch: RayBatch, cap: int, any_hit: bool,
+                   compact: str = "auto"):
+    """Trace only the live prefix of a batch whose dead rays are at the end
+    (after morton_sort_rays); the rest get the miss sentinel tri -1, t 0,
+    u 0, v 0.
+
+    The reference pads the prefix to a power of two to bound XLA
+    recompiles; the port traces the slots up to the last live ray, which
+    gives identical results (a dead ray traced is the same sentinel: its
+    tmax is 0). compact: "on", "off", or "auto" (when at most 3/4 of the
+    rays are live).
+    """
+    if compact not in ("on", "off", "auto"):
+        raise ValueError(f"compact_rays must be on, off or auto, not "
+                         f"{compact!r}")
+    n = batch.num_rays
+    if compact != "off" and n > 8192:
+        live_mask = batch.tmax > batch.tmin
+        slots = torch.arange(n, device=live_mask.device)
+        live, last = torch.stack([live_mask.sum(), torch.where(
+            live_mask, slots, -1).max()]).tolist()
+        # Dead rays sort last, but a live ray may share their key, so the
+        # prefix runs through the last live slot.
+        prefix = last + 1
+        if prefix < n and (compact == "on" or live <= (3 * n) // 4):
+            sub = RayBatch(batch.orig[:prefix], batch.dirn[:prefix],
+                           batch.tmin[:prefix], batch.tmax[:prefix])
+            tri, t, u, v = _trace_batched(tracer, sub, cap, any_hit)
+            pad = n - prefix
+            return (torch.cat([tri, tri.new_full((pad,), -1)]),
+                    *(torch.cat([a, a.new_zeros((pad,))]) for a in (t, u, v)))
+    return _trace_batched(tracer, batch, cap, any_hit)
 
 
 class Renderer:
@@ -165,16 +232,14 @@ class Renderer:
             engine = "auto"
         if engine in PACKET_ENGINES:
             self.engine = "packet"
-        elif engine == "cpu_golden":
-            self.engine = "cpu_golden"
-        elif engine == "binraster":
+        elif engine in TABLE_TRACERS or engine == "cpu_golden":
+            self.engine = engine
+        elif engine in UNPORTED_ENGINES:
             raise NotImplementedError(
-                "engine 'binraster' is not ported yet (ROADMAP queue 2: the "
-                "v1 screen-space engine, binraster_prep_fast and its kernel)")
+                f"engine {engine!r} is not ported yet (ROADMAP "
+                f"{UNPORTED_ENGINES[engine]})")
         else:
-            raise NotImplementedError(
-                f"engine {cfg.engine!r} is not ported yet (ROADMAP queue 1, "
-                "items 2, 10, 11)")
+            raise ValueError(f"unknown engine {engine!r}")
         # Packed-direct: builder="lbvh" builds the packet kernel's tables
         # on the device (the reference's path on its accelerator).
         self.timer = StageTimer(self.device)
@@ -193,16 +258,16 @@ class Renderer:
             else:
                 self.flat = flat if flat is not None else build_accel(
                     scene, build_cfg, device=self.device)
-        if self.engine == "packet":
+        if self.engine in TABLE_TRACERS:
             if not direct:
                 _, _, tpr, npr = pick_layout(self.flat)
                 self.packed = pack_bvh(self.flat, scene.tri_verts(),
                                        tris_per_row=tpr, nodes_per_row=npr)
                 self.tables = tables_from_packed(self.packed, self.device)
+            trace = TABLE_TRACERS[self.engine]
 
             def tracer(o, d, tn, tx, any_hit):
-                return trace_packet(self.tables, o, d, tn, tx,
-                                    any_hit=any_hit)
+                return trace(self.tables, o, d, tn, tx, any_hit=any_hit)
         else:
             def tracer(o, d, tn, tx, any_hit):
                 rec = trace_cpu_golden(
@@ -213,6 +278,18 @@ class Renderer:
         self._tracer = tracer
         self.geom_normals = torch.from_numpy(
             scene.geometric_normals()).to(self.device)
+        # Scene state of the secondary passes.
+        def dev(a, dtype=np.float32):
+            return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(
+                self.device)
+
+        self.mat_diffuse = dev([m.diffuse for m in scene.materials])
+        self.mat_emissive = dev([m.emissive for m in scene.materials])
+        self.mat_ids = dev(scene.mat_ids, np.int64)
+        self._bbox = lo, hi = scene.bbox()
+        self.scene_lo, self.scene_hi = dev(lo), dev(hi)
+        self.scene_scale = float(np.linalg.norm(hi - lo))
+        self.eps = float(np.float32(self.scene_scale * 1e-4))
         if self.primary_engine is not None:
             if scene.num_tris > DENSE_MAX_TRIS:
                 self.primary_engine = None   # sorts and tables blow up
@@ -348,13 +425,86 @@ class Renderer:
         """Per-dispatch ray cap."""
         return max(self.cfg.max_batch_rays, 1 << 22)
 
+    def _unit_normals(self, hit_tri: torch.Tensor, dirn: torch.Tensor):
+        return raygen.surface_frame(hit_tri, dirn, self.geom_normals, 0.0)[0]
+
+    def _default_light(self, camera: Camera) -> np.ndarray:
+        if any(self.cfg.light):
+            return np.asarray(self.cfg.light, np.float32)
+        lo, hi = self._bbox   # scene.bbox(), taken once in __init__
+        # High-center light slightly toward the camera.
+        c = (lo + hi) / 2
+        return (np.array([c[0], hi[1] * 0.95, c[2]], np.float32) * 0.7
+                + camera.position * 0.3)
+
+    def gen_secondary(self, camera: Camera, mode: str, batch: RayBatch,
+                      tri: torch.Tensor, t: torch.Tensor, key=None):
+        """The secondary RayBatch of `mode` as render() builds it: rays of
+        missed pixels are dead (zero length), and AO and diffuse batches
+        are Morton-sorted when cfg.sort_secondary (AO origin-major, diffuse
+        direction-major). Returns (batch, any_hit)."""
+        cfg = self.cfg
+        key = rng.prng_key(cfg.seed, self.device) if key is None else key
+        hit_mask = tri >= 0
+        normals = self._unit_normals(tri, batch.dirn)
+        hit_pos = batch.orig + torch.where(hit_mask, t, 0.0)[:, None] \
+            * batch.dirn
+        if mode == "shadow":
+            light = torch.from_numpy(np.asarray(
+                self._default_light(camera), np.float32)).to(self.device)
+            sb = raygen.shadow(hit_pos, normals, light, self.eps)
+            return RayBatch(sb.orig, sb.dirn, sb.tmin,
+                            torch.where(hit_mask, sb.tmax, 0.0),
+                            sb.slot_to_id), True
+        if mode in ("ao", "diffuse"):
+            S = cfg.samples
+            gen = raygen.ao if mode == "ao" else raygen.diffuse
+            arg = cfg.ao_radius if mode == "ao" else self.scene_scale * 10.0
+            sec = gen(key, hit_pos, normals, S, arg, self.eps)
+            live = torch.repeat_interleave(hit_mask, S)
+            sec = RayBatch(sec.orig, sec.dirn, sec.tmin,
+                           torch.where(live, sec.tmax, 0.0), sec.slot_to_id)
+            if cfg.sort_secondary:
+                sec = morton_sort_rays(sec, self.scene_lo, self.scene_hi,
+                                       direction_major=(mode != "ao"))
+            return sec, mode == "ao"
+        raise ValueError(f"no secondary pass for mode {mode!r}")
+
+    def _secondary_tracer(self):
+        """The tracer of the secondary passes: the plain engine tracer.
+        seed_secondary and stage_secondary "auto" resolve to off (the
+        reference's auto needs tuned.json entries, and the port reads no
+        tuned.json); "on" is not ported yet."""
+        for name in ("seed_secondary", "stage_secondary"):
+            value = getattr(self.cfg, name)
+            if value == "on":
+                raise NotImplementedError(
+                    f"{name}='on' is not ported yet (ROADMAP queue 1, item "
+                    "15: subset_seeded_trace and staged_closest_trace)")
+            if value not in ("auto", "off"):
+                raise ValueError(f"{name} must be on, off or auto, not "
+                                 f"{value!r}")
+        return self._tracer
+
+    def _trace_secondary(self, batch: RayBatch, any_hit: bool):
+        """One secondary pass: the live prefix of a sorted batch, or the
+        whole batch."""
+        tr = self._secondary_tracer()
+        if self.cfg.sort_secondary:   # dead rays are at the end
+            return _compact_trace(tr, batch, self._cap(), any_hit,
+                                  compact=self.cfg.compact_rays)
+        return _trace_batched(tr, batch, self._cap(), any_hit)
+
     def render(self, camera: Camera, mode: str | None = None) -> RenderResult:
-        mode = mode or self.cfg.mode
-        if mode != "primary":
+        cfg = self.cfg
+        mode = mode or cfg.mode
+        if mode == "textured":
             raise NotImplementedError(
-                f"mode {mode!r} is not ported yet (ROADMAP queue 1, item 8: "
-                "secondary modes)")
-        W, H = self.cfg.width, self.cfg.height
+                "mode 'textured' is not ported yet (ROADMAP queue 1, item 8: "
+                "render/texture.py)")
+        if mode not in MODES:
+            raise ValueError(f"unknown mode {mode!r}")
+        W, H = cfg.width, cfg.height
         timer = StageTimer(self.device)
         order, _ = pixel_table(W, H)
         cam = raygen.camera_arrays(camera, W, H, self.device)
@@ -370,8 +520,40 @@ class Renderer:
                                               batch.tmin, batch.tmax,
                                               cam=cam, canonical=True)
         timer.count("rays_primary", batch.num_rays)
+        base_col = normal_color(self.geom_normals, tri)
+        key = rng.prng_key(cfg.seed, self.device)
+
+        if mode == "primary":
+            color = base_col
+        elif mode == "shadow":
+            with timer.stage("raygen_shadow"):
+                sbatch, _ = self.gen_secondary(camera, mode, batch, tri, t,
+                                               key=key)
+            with timer.stage("trace_shadow"):
+                stri = _trace_batched(self._tracer, sbatch, self._cap(),
+                                      True)[0]
+            timer.count("rays_shadow", sbatch.num_rays)
+            color = shadow_mix(base_col, (stri < 0).to(torch.float32))
+        elif mode in ("ao", "diffuse"):
+            S = cfg.samples
+            with timer.stage(f"raygen_{mode}"):
+                sec, any_hit = self.gen_secondary(camera, mode, batch, tri, t,
+                                                  key=key)
+            with timer.stage(f"trace_{mode}"):
+                stri = self._trace_secondary(sec, any_hit)[0]
+            timer.count(f"rays_{mode}", sec.num_rays)
+            if cfg.sort_secondary:
+                stri = unsort(stri, sec.slot_to_id)
+            if mode == "ao":
+                vis = (stri < 0).to(torch.float32).reshape(-1, S).mean(dim=1)
+                color = base_col * vis[:, None]
+            else:
+                bounce = normal_color(self.geom_normals, stri).reshape(
+                    -1, S, 3).mean(dim=1)
+                color = base_col * 0.5 + bounce * 0.5
+        else:
+            color = self._path_trace(key, batch, tri, t, timer)
         with timer.stage("shade"):
-            color = normal_color(self.geom_normals, tri)
             fb = torch.zeros((W * H, 3), dtype=torch.float32,
                              device=self.device)
             fb[batch.slot_to_id.long()] = color
@@ -380,9 +562,61 @@ class Renderer:
             hit_tri = unsort(tri, batch.slot_to_id).cpu().numpy()
             hit_t = unsort(t, batch.slot_to_id).cpu().numpy()
         stats = timer.ms()
-        if stats.get("trace_primary", 0) > 0:
-            # Mrays/s of the primary pass (trace stage wall time).
-            stats["mrays_primary"] = (stats["rays_primary"] / 1e6
-                                      / (stats["trace_primary"] / 1e3))
+        # Mrays/s of each traced pass (its trace stage's wall time).
+        for k in list(stats):
+            if k.startswith("rays_"):
+                name = k[5:]
+                if stats.get(f"trace_{name}", 0) > 0:
+                    stats[f"mrays_{name}"] = (stats[k] / 1e6
+                                              / (stats[f"trace_{name}"] / 1e3))
         return RenderResult(image=img, hit_tri=hit_tri, hit_t=hit_t,
                             stats=stats)
+
+    def _path_trace(self, key, batch: RayBatch, tri, t, timer: StageTimer):
+        """`bounces`-bounce diffuse path tracing with emissive materials."""
+        cfg = self.cfg
+        R = batch.num_rays
+        dev = self.device
+        throughput = torch.ones((R, 3), dtype=torch.float32, device=dev)
+        radiance = torch.zeros((R, 3), dtype=torch.float32, device=dev)
+        cur_orig, cur_dirn = batch.orig, batch.dirn
+        cur_tri, cur_t = tri, t
+        alive = cur_tri >= 0
+        # Sky term for primary misses.
+        radiance = radiance + torch.where(alive[:, None], 0.0, 0.05)
+        for b in range(cfg.bounces + 1):
+            mat = self.mat_ids[cur_tri.clamp(min=0).long()]
+            emis = self.mat_emissive[mat]
+            diff = self.mat_diffuse[mat]
+            radiance = radiance + torch.where(alive[:, None],
+                                              throughput * emis, 0.0)
+            throughput = throughput * torch.where(alive[:, None], diff, 0.0)
+            if b == cfg.bounces:
+                break
+            normals = self._unit_normals(cur_tri, cur_dirn)
+            hit_pos = cur_orig + torch.where(alive, cur_t, 0.0)[:, None] \
+                * cur_dirn
+            key, sub = rng.split(key)
+            d = raygen.cosine_hemisphere(sub, normals, (R,))
+            o = hit_pos + normals * self.eps
+            nb = RayBatch(o, d, torch.zeros((R,), dtype=torch.float32,
+                                            device=dev),
+                          torch.where(alive, float(np.float32(
+                              self.scene_scale * 10)), 0.0),
+                          torch.arange(R, dtype=torch.int32, device=dev))
+            if cfg.sort_secondary:
+                nb = morton_sort_rays(nb, self.scene_lo, self.scene_hi)
+            with timer.stage(f"trace_bounce{b}"):
+                btri, bt, _, _ = self._trace_secondary(nb, False)
+            timer.count(f"rays_bounce{b}", R)
+            if cfg.sort_secondary:
+                btri = unsort(btri, nb.slot_to_id)
+                bt = unsort(bt, nb.slot_to_id)
+            cur_orig, cur_dirn = o, d
+            # Ambient sky for bounce misses.
+            sky = (btri < 0) & alive
+            radiance = radiance + torch.where(sky[:, None],
+                                              throughput * 0.8, 0.0)
+            alive = alive & (btri >= 0)
+            cur_tri, cur_t = btri, bt
+        return radiance

@@ -12,6 +12,7 @@ wraps tables that are already on the device, as the LBVH build emits them
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import cached_property
 
 import numpy as np
 import torch
@@ -33,6 +34,17 @@ class PackedTables:
 
     def nbytes(self) -> int:
         return (self.nodes8.numel() + self.tris12.numel()) * 4
+
+    @cached_property
+    def max_leaf_rows(self) -> int:
+        """The most triangle rows one leaf spans (0 without leaves): the
+        leaf-run encodings of packet_ww and packet_ifif hold at most 32.
+        Computed once, on the tables' device (one host read)."""
+        npr = self.nodes_per_row
+        rec = self.nodes8[:, :npr * NODE_LANES].reshape(-1, NODE_LANES)
+        rec = rec[:self.num_nodes]
+        cnt = torch.where(rec[:, 12:14] < 0, rec[:, 14:16], 0.0)
+        return int(cnt.max()) if cnt.numel() else 0
 
 
 def _check_layout(npr: int, tpr: int):

@@ -350,16 +350,26 @@ def test_wrappers_reject_bad_operands():
 
 def test_c_entry_points_match_ctypes_signatures():
     """Each extern "C" function of csrc/*.cu takes as many arguments as
-    its ctypes binding declares (nothing compiles the sources here)."""
+    its ctypes binding declares (nothing compiles the sources here). The
+    traversal kernels define theirs with trace_common.cuh's
+    NTRACE_TRAVERSAL_ENTRY(name, kernel), whose one signature counts for
+    each name."""
     assert [p.name for p in kbuild.sources()] == ["dense_trace.cu",
+                                                  "packet_ifif.cu",
                                                   "packet_trace.cu",
+                                                  "packet_ww.cu",
                                                   "row_scan.cu"]
     found = {}
-    for src in kbuild.sources():
+    for src in kbuild.sources() + [kbuild.CSRC_DIR / "trace_common.cuh"]:
         for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)',
                              src.read_text()):
             args = m.group(2).strip()
             found[m.group(1)] = len(args.split(",")) if args else 0
+    per_entry = found.pop("NAME")
+    for src in kbuild.sources():
+        for m in re.finditer(r"^NTRACE_TRAVERSAL_ENTRY\((\w+), \w+\)$",
+                             src.read_text(), re.MULTILINE):
+            found[m.group(1)] = per_entry
     assert found == {k: len(v[1]) for k, v in kbuild.SIGNATURES.items()}
 
 

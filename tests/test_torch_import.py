@@ -43,8 +43,12 @@ PORT_MODULES = (
     "ntrace_tpu_torch.ray.pixeltable",
     "ntrace_tpu_torch.ray.raybatch",
     "ntrace_tpu_torch.ray.raygen",
+    "ntrace_tpu_torch.ray.rng",
     "ntrace_tpu_torch.trace.packet_common",
     "ntrace_tpu_torch.trace.packet",
+    "ntrace_tpu_torch.trace.packet_ww",
+    "ntrace_tpu_torch.trace.packet_ifif",
+    "ntrace_tpu_torch.trace.registry",
     "ntrace_tpu_torch.trace.binraster",
     "ntrace_tpu_torch.trace.binraster_dense",
     "ntrace_tpu_torch.utils.timing",

@@ -188,7 +188,9 @@ def test_library_path_keyed_by_sources():
     assert path.parent == kbuild.BUILD_DIR
     assert path == kbuild.library_path()
     assert [p.name for p in kbuild.sources()] == ["dense_trace.cu",
+                                                  "packet_ifif.cu",
                                                   "packet_trace.cu",
+                                                  "packet_ww.cu",
                                                   "row_scan.cu"]
     assert "--fmad=false" in kbuild.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in kbuild.NVCC_FLAGS

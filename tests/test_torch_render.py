@@ -75,6 +75,22 @@ def test_packet_engine_names_resolve(conference, engine):
     assert r.tables.nodes_per_row == r.packed.nodes_per_row
 
 
+@pytest.mark.parametrize("engine", ["packet_ww", "packet_ifif"])
+def test_variant_engines_trace_host_packed_tables(engine):
+    """packet_ww and packet_ifif trace host-packed tables; builder="lbvh"
+    with them takes the flat route (build_lbvh_flat, then the host pack),
+    as in the reference."""
+    soup = make_random_soup(n_tris=300, seed=2)
+    r = Renderer(soup, BuildConfig(builder="lbvh", max_leaf_size=8),
+                 RenderConfig(engine=engine), device="cpu")
+    assert r.engine == engine and r.flat is not None
+    assert r.tables.tris_per_row == r.packed.tris_per_row
+    assert r.tables.nodes_per_row == r.packed.nodes_per_row
+    with pytest.raises(ValueError, match="unknown engine"):
+        Renderer(soup, BuildConfig(builder="median"),
+                 RenderConfig(engine="no_such_engine"), device="cpu")
+
+
 def test_renderer_needs_an_explicit_device(soup_small):
     with pytest.raises(TypeError, match="device"):
         Renderer(soup_small, BuildConfig(builder="median"), RenderConfig())
@@ -132,10 +148,12 @@ def test_trace_batched_retries_only_on_oom():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(mode="shadow"), "secondary modes"),
+    (dict(mode="textured"), "texture"),
     (dict(engine="stack2"), "not ported"),
     (dict(engine="binraster"), "v1 screen-space engine"),
     (dict(seed_primary="on"), "seeded primary"),
+    (dict(engine="packet_pipe"), "packet family"),
+    (dict(mode="diffuse", seed_secondary="on"), "item 15"),
 ])
 def test_unported_paths_raise(soup_small, kw, match):
     flat = build_accel(soup_small, BuildConfig(builder="median"))
