@@ -11,7 +11,8 @@ traces the primary frame with the hand-written CUDA traversal kernel
 screen-space engine, as bench.py's tuned reference does: prep v5 in
 torch, then the CUDA walk or dma kernel (ntrace_tpu_torch/csrc/
 dense_trace.cu); phases 8 and 9 trace the secondary modes with the packet,
-while-while and speculative while-while kernels.
+while-while and speculative while-while kernels, phase 11 every mode with
+the pipelined while-while and the 8-wide packet kernels.
 
 Phases, each printed as it completes:
   1. versions, card name and power limit (nvidia-smi)
@@ -65,6 +66,19 @@ Phases, each printed as it completes:
      builder="lbvh", built on the card through the row-scan kernel, and
      render(mode="ao") through the packet kernel; 128 AO rays against
      brute_force_anyhit; the AO pass time
+ 11. the pipelined while-while and 8-wide packet kernels
+     (csrc/packet_pipe.cu, csrc/packet_wide.cu): the phase-3 soup check for
+     each (wide at tris_per_row 4, exact False and True); render() of
+     primary, shadow, ao, diffuse and path with engine packet_pipe and
+     packet_wide, every pass on phase 8's rays and through check_pass,
+     closest hits equal to the packet kernel's on every ray (for
+     packet_wide: but rays brute_force_mt decides for it), any hits on
+     tri >= 0, images bit-equal (but one pixel per decided ray); pipe
+     bit-equal to its twin on the 65,536-ray samples, wide on a
+     contiguous slice of whole packets sized by its twin's time; times of
+     packet, pipe and wide (both exact modes) on the primary, shadow, AO
+     and diffuse batches beside one bound per batch over the five twins;
+     the hairball's wide tables refused (2**19 triangle rows)
 Then one JSON line of per-kernel results (with each kernel's bound from
 this run's work), the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises and the script
@@ -93,19 +107,24 @@ from ntrace_tpu_torch.host import (BuildConfig, RenderConfig,
                                    brute_force_anyhit, brute_force_mt,
                                    default_camera, get_scene,
                                    golden_mismatches, make_random_soup,
-                                   pack_bvh, trace_cpu_golden)
+                                   pack_bvh, pack_wide_bvh, trace_cpu_golden)
 from ntrace_tpu_torch.host.bvh.sbvh import sbvh_impl_tag
 from ntrace_tpu_torch.kernels.build import build
 from ntrace_tpu_torch.ops.pscan import OPS, row_scan_i32, row_scan_i32_ref
 from ntrace_tpu_torch.ray import raygen
 from ntrace_tpu_torch.ray.pixeltable import pixel_table
 from ntrace_tpu_torch.render.renderer import Renderer, build_accel
-from ntrace_tpu_torch.tables import tables_from_packed
+from ntrace_tpu_torch.tables import (WideTables, tables_from_packed,
+                                     tables_from_wide)
 from ntrace_tpu_torch.trace import binraster_dense as bd
 from ntrace_tpu_torch.trace.packet import trace_packet, trace_packet_ref
 from ntrace_tpu_torch.trace.packet_ifif import (trace_packet_ifif,
                                                 trace_packet_ifif_ref)
 from ntrace_tpu_torch.trace.packet_common import read_bytes, work_with_reads
+from ntrace_tpu_torch.trace.packet_pipe import (trace_packet_pipe,
+                                                trace_packet_pipe_ref)
+from ntrace_tpu_torch.trace.packet_wide import (WARP, trace_packet_wide,
+                                                trace_packet_wide_ref)
 from ntrace_tpu_torch.trace.packet_ww import (trace_packet_ww,
                                               trace_packet_ww_ref)
 from ntrace_tpu_torch.utils.timing import cuda_ms
@@ -130,7 +149,19 @@ ENGINES = {
                     "ntrace_tpu/trace/packet_ifif.py:54"),
 }
 VARIANTS = ("packet_ww", "packet_ifif")
+# Phase 11's engines: the pipelined while-while on the packed tables, and
+# the 8-wide packet kernel on its own tables.
+NEW_ENGINES = {
+    "packet_pipe": (trace_packet_pipe, trace_packet_pipe_ref,
+                    "ntrace_tpu_torch/csrc/packet_pipe.cu",
+                    "ntrace_tpu/trace/packet_pipe.py:51"),
+    "packet_wide": (trace_packet_wide, trace_packet_wide_ref,
+                    "ntrace_tpu_torch/csrc/packet_wide.cu",
+                    "ntrace_tpu/trace/packet_wide.py:80"),
+}
+ALL_ENGINES = {**ENGINES, **NEW_ENGINES}
 SECONDARY_MODES = ("shadow", "ao", "diffuse", "path")
+ALL_MODES = ("primary",) + SECONDARY_MODES
 SAMPLE_RAYS = 65_536          # stride sample of a batch for twin checks
 ANYHIT_RAYS = 256             # rays of an any-hit pass vs brute_force_anyhit
 HAIR_AO_RAYS = 128
@@ -151,6 +182,7 @@ BRUTE_RAYS = 256
 HBM_BYTES_PER_MS = 3.35e9
 FP32_OPS_PER_MS = 67e9
 NODE_VISIT_OPS = 50
+WIDE_VISIT_OPS = 8 * NODE_VISIT_OPS // 2
 MT_OPS = 51
 
 
@@ -185,9 +217,11 @@ def compare(kern, twin, label):
     bad = [name for name, a, b in zip("tri t u v".split(), kern, twin)
            if not torch.equal(a, b)]
     if bad:
-        n = int(torch.stack([a != b for a, b in zip(kern, twin)])
-                .any(0).sum())
-        raise AssertionError(f"{label}: {', '.join(bad)} differ on {n} rays")
+        diff = torch.nonzero(torch.stack([a != b for a, b in zip(kern, twin)])
+                             .any(0)).squeeze(1)
+        raise AssertionError(f"{label}: {', '.join(bad)} differ on "
+                             f"{diff.numel()} rays, first "
+                             f"{diff[:8].tolist()}")
     return 0.0
 
 
@@ -221,12 +255,12 @@ def phase_soup(device):
             f"{'identical' if torch.equal(ka[0], ta[0]) else 'differs'})")
 
 
-def phase_soup_variants(device):
+def phase_soup_variants(device, names=VARIANTS, tag="[9]"):
     """Phase 9, first check: the phase-3 soup for packet_ww and
-    packet_ifif. Closest hit and any hit bit-equal to the twin (any-hit tri
-    included) at layouts (12, 1) and (4, 8); closest hits equal to the
-    packet kernel's on every ray and exact against brute_force_mt; any-hit
-    tri >= 0 against brute_force_anyhit."""
+    packet_ifif (phase 11: packet_pipe). Closest hit and any hit bit-equal
+    to the twin (any-hit tri included) at layouts (12, 1) and (4, 8);
+    closest hits equal to the packet kernel's on every ray and exact
+    against brute_force_mt; any-hit tri >= 0 against brute_force_anyhit."""
     soup = make_random_soup(n_tris=5000, seed=11)
     flat = build_accel(soup, BuildConfig(builder="binned_sah"))
     rays_np = random_rays(np.random.default_rng(2024), 65_536)
@@ -241,8 +275,8 @@ def phase_soup_variants(device):
             pack_bvh(flat, soup.tri_verts(), tris_per_row=tpr,
                      nodes_per_row=npr), device)
         packet = trace_packet(tables, *rays)
-        for name in VARIANTS:
-            kernel, twin = ENGINES[name][:2]
+        for name in names:
+            kernel, twin = ALL_ENGINES[name][:2]
             label = f"soup {name} tpr={tpr} npr={npr}"
             kern = kernel(tables, *rays)
             compare(kern, twin(tables, *rays), f"{label} vs twin")
@@ -256,7 +290,7 @@ def phase_soup_variants(device):
             if not np.array_equal(ka[0].cpu().numpy()[sub] >= 0, blocked):
                 raise AssertionError(f"{label}: any-hit tri>=0 differs from "
                                      "brute_force_anyhit")
-            log(f"[9] {label}: closest hit bit-equal to the twin and to the "
+            log(f"{tag} {label}: closest hit bit-equal to the twin and to the "
                 f"packet kernel on all 65536 rays; any hit bit-equal to the "
                 f"twin (tri included, blocked "
                 f"{float((ka[0] >= 0).float().mean()):.3f}); exact vs "
@@ -375,10 +409,22 @@ def traversal_bound(tables, rays, works, scale=1.0):
     once, and each node record and triangle row that the twin read, once
     (for a twin run on a sample, what the sample read: no more than the
     batch reads). Returns (bound_ms, bound_by, schedule)."""
+    return batch_bound(rays, {e: (tables, w, scale)
+                              for e, w in works.items()})
+
+
+def batch_bound(rays, entries):
+    """traversal_bound over schedules that may trace different tables and
+    samples: entries maps a schedule to (tables, work, scale). A node visit
+    of the packed tables is two child slab tests (NODE_VISIT_OPS); a
+    packet's visit of a wide node is its 8 child tests (WIDE_VISIT_OPS),
+    and a wide node row read is 512 bytes (read_bytes)."""
     R = rays[0].shape[0]
     best = None
-    for engine, w in works.items():
-        ops = (w["node_visits"] * NODE_VISIT_OPS
+    for engine, (tables, w, scale) in entries.items():
+        per_visit = (WIDE_VISIT_OPS if isinstance(tables, WideTables)
+                     else NODE_VISIT_OPS)
+        ops = (w["node_visits"] * per_visit
                + w["tri_slot_tests"] * MT_OPS) * scale
         b = bound(nbytes(*rays) + 16 * R + read_bytes(tables, w), ops)
         if best is None or b[0] < best[0]:
@@ -823,19 +869,20 @@ def phase_lbvh_timing(rl, batch, conf_dev, hair_dev, smi):
 
 # -- phases 8-10: the secondary passes -------------------------------------
 
-PASSES = {"shadow": ("primary", "shadow"), "ao": ("primary", "ao"),
+PASSES = {"primary": ("primary",),
+          "shadow": ("primary", "shadow"), "ao": ("primary", "ao"),
           "diffuse": ("primary", "diffuse"),
           "path": ("primary", "bounce0", "bounce1")}
 
 
 def reset_counts():
-    for kernel, *_ in ENGINES.values():
+    for kernel, *_ in ALL_ENGINES.values():
         kernel.launches = 0
     row_scan_i32.launches = 0
 
 
 def launch_counts() -> dict:
-    return {**{name: e[0].launches for name, e in ENGINES.items()},
+    return {**{name: e[0].launches for name, e in ALL_ENGINES.items()},
             "row_scan": row_scan_i32.launches}
 
 
@@ -921,8 +968,8 @@ def phase_secondary(r, smi):
     out = {}
     for mode in SECONDARY_MODES:
         res, counts, passes = render_recorded(r, mode, camera)
-        if counts["packet"] != len(passes) or counts["packet_ww"] \
-                or counts["packet_ifif"]:
+        if counts["packet"] != len(passes) or any(
+                counts[k] for k in ALL_ENGINES if k != "packet"):
             raise AssertionError(f"render({mode}): launches {counts}, want "
                                  f"{len(passes)} packet launches")
         check_image(f"[8] render({mode})", res.image, r.cfg.width,
@@ -964,7 +1011,7 @@ def phase_variant_renders(r, secondary):
         launches[name] = 0
         for mode in SECONDARY_MODES:
             res, counts, passes = render_recorded(rv, mode, camera)
-            others = sum(counts[k] for k in ENGINES if k != name)
+            others = sum(counts[k] for k in ALL_ENGINES if k != name)
             if counts[name] != len(passes) or others:
                 raise AssertionError(f"{name} render({mode}): launches "
                                      f"{counts}")
@@ -998,12 +1045,13 @@ def stride_sample(rays, n=SAMPLE_RAYS):
     return [a[idx] for a in rays], R / len(idx)
 
 
-def phase_variant_twins(tables, secondary):
-    """Phase 9: each kernel (packet, ww, ifif) bit-equal to its twin on a
-    SAMPLE_RAYS stride sample of every traced batch (any-hit tri
-    included), and each twin's work on that sample (work_with_reads) for
-    the per-batch bounds. Returns, by batch, the factor that scales the
-    sample's counts to the batch and the work by schedule."""
+def phase_variant_twins(tables, secondary, engines=ENGINES, tag="[9]"):
+    """Phase 9: each kernel (packet, ww, ifif; phase 11: pipe) bit-equal
+    to its twin on a SAMPLE_RAYS stride sample of every traced batch
+    (any-hit tri included), and each twin's work on that sample
+    (work_with_reads) for the per-batch bounds. Returns, by batch, the
+    factor that scales the sample's counts to the batch and the work by
+    schedule."""
     works = {}
     batches = [("primary", secondary["shadow"][1]["primary"])] + [
         (p, secondary[m][1][p]) for m in SECONDARY_MODES
@@ -1011,15 +1059,15 @@ def phase_variant_twins(tables, secondary):
     for bname, (rays, any_hit, _) in batches:
         sample, scale = stride_sample(rays)
         works[bname] = (scale, {})
-        for engine, (kernel, twin, *_) in ENGINES.items():
+        for engine, (kernel, twin, *_) in engines.items():
             work = work_with_reads(tables)
             t0 = time.perf_counter()
             tw = twin(tables, *sample, any_hit=any_hit, work=work)
             twin_s = time.perf_counter() - t0
             compare(kernel(tables, *sample, any_hit=any_hit), tw,
-                    f"[9] {engine} on the {bname} sample vs twin")
+                    f"{tag} {engine} on the {bname} sample vs twin")
             works[bname][1][engine] = work
-            log(f"[9] {engine} {bname}: kernel bit-equal to twin on a "
+            log(f"{tag} {engine} {bname}: kernel bit-equal to twin on a "
                 f"{len(sample[0])}-ray stride sample of {rays[0].shape[0]} "
                 f"({'any' if any_hit else 'closest'} hit, tri included; "
                 f"twin {twin_s:.2f} s); per ray "
@@ -1034,8 +1082,8 @@ def phase_variant_timing(tables, primary, secondary, works, smi):
     batches, beside the batch's bound (traversal_bound: the least work of
     any schedule). The primary frame's bound comes from each twin's full
     count, the others' from the sampled work. Then each new kernel's twin
-    on the primary frame (median of 3). Returns the primary bound and the
-    new kernels' rows for the kernels line."""
+    on the primary frame (median of 3). Returns the primary bound, the
+    new kernels' rows for the kernels line and the full counts."""
     full = {}
     for engine, (_, twin, *_) in ENGINES.items():
         full[engine] = work_with_reads(tables)
@@ -1078,7 +1126,7 @@ def phase_variant_timing(tables, primary, secondary, works, smi):
             + ", ".join(f"{x:.1f}" for x in t) + f"); kernel "
             f"{rows[engine]['ms']:.4f} ms on {smi}")
     torch.cuda.synchronize()
-    return bounds["primary"][:2], rows
+    return bounds["primary"][:2], rows, full
 
 
 def phase_hairball_ao(device, hair, smi, width=WIDTH, height=HEIGHT):
@@ -1126,6 +1174,292 @@ def phase_hairball_ao(device, hair, smi, width=WIDTH, height=HEIGHT):
     return counts
 
 
+# -- phase 11: the pipelined while-while and the 8-wide packet kernel -------
+
+WIDE_TWIN_S = 6.0     # twin seconds a wide slice may grow to, per batch
+WIDE_SLICE0 = 64 * WARP
+
+
+def phase_soup_wide(device):
+    """Phase 11, first check: the phase-3 soup through the wide kernel at
+    tris_per_row 4, in both exact modes. Closest hit and any hit bit-equal
+    to the twin on all 65,536 rays (any-hit tri included); closest hits
+    equal to the packet kernel's on every ray and exact against
+    brute_force_mt; any-hit tri >= 0 against brute_force_anyhit."""
+    soup = make_random_soup(n_tris=5000, seed=11)
+    flat = build_accel(soup, BuildConfig(builder="binned_sah"))
+    rays_np = random_rays(np.random.default_rng(2024), 65_536)
+    rays = [torch.from_numpy(a).to(device) for a in rays_np]
+    shadow = rays[:3] + [torch.full_like(rays[3], 14.0)]
+    sub = np.arange(0, 65_536, 16)
+    bf = brute_force_mt(soup, *(a[sub] for a in rays_np))
+    blocked = brute_force_anyhit(soup, *(a[sub] for a in rays_np[:3]),
+                                 np.full(len(sub), 14.0, np.float32))
+    packet = trace_packet(tables_from_packed(
+        pack_bvh(flat, soup.tri_verts(), tris_per_row=4, nodes_per_row=1),
+        device), *rays)
+    wt = tables_from_wide(pack_wide_bvh(flat, soup.tri_verts(),
+                                        tris_per_row=4), device)
+    for exact in (False, True):
+        label = f"soup packet_wide exact={exact}"
+        kern = trace_packet_wide(wt, *rays, exact=exact)
+        compare(kern, trace_packet_wide_ref(wt, *rays, exact=exact),
+                f"{label} vs twin")
+        compare(kern, packet, f"{label} vs packet kernel")
+        if not np.array_equal(kern[0].cpu().numpy()[sub], bf.tri):
+            raise AssertionError(f"{label}: tri differs from brute_force_mt")
+        ka = trace_packet_wide(wt, *shadow, any_hit=True, exact=exact)
+        compare(ka, trace_packet_wide_ref(wt, *shadow, any_hit=True,
+                                          exact=exact),
+                f"{label} any-hit vs twin")
+        if not np.array_equal(ka[0].cpu().numpy()[sub] >= 0, blocked):
+            raise AssertionError(f"{label}: any-hit tri>=0 differs from "
+                                 "brute_force_anyhit")
+        log(f"[11] {label}: closest hit bit-equal to the twin and to the "
+            f"packet kernel on all 65536 rays; any hit bit-equal to the twin "
+            f"(tri included, blocked {float((ka[0] >= 0).float().mean()):.3f}"
+            f"); exact vs brute_force_mt and brute_force_anyhit on "
+            f"{len(sub)}")
+
+
+def decided_by_brute_force(tag, scene, rays, hits, rhits):
+    """The rays of a closest-hit pass where `hits` differ from the packet
+    kernel's `rhits`: brute_force_mt must side with `hits` on every one
+    (tri). Returns how many there are."""
+    diff = torch.nonzero(torch.stack([a != b for a, b in zip(hits, rhits)])
+                         .any(0)).squeeze(1)
+    if diff.numel():
+        bf = brute_force_mt(scene, *(a[diff].cpu().numpy() for a in rays))
+        wrong = int((hits[0][diff].cpu().numpy() != bf.tri).sum())
+        if wrong:
+            raise AssertionError(f"{tag}: brute_force_mt sides with the "
+                                 f"packet kernel on {wrong} of "
+                                 f"{diff.numel()} rays")
+    return diff.numel()
+
+
+def phase_new_renders(r, secondary):
+    """Phase 11: render() of every mode with engine packet_pipe and
+    packet_wide on phase 4's scene and BVH. Each pass traces phase 8's
+    rays (phase 4's for primary); any-hit passes equal the packet kernel's
+    tri >= 0; closest-hit passes equal its tri/t/u/v on every ray, except,
+    for packet_wide (other tables, other culling), rays that brute_force_mt
+    decides for packet_wide (after such a ray, a later path pass has other
+    rays: it meets the oracles, and phase 8's rays of it are traced again
+    and compared); every traced pass passes check_pass; images bit-equal
+    to the packet engine's but for at most one pixel per decided ray. Returns the launches of each kernel over its five renders, the
+    renderers and the rays decided for packet_wide."""
+    camera = default_camera("conference")
+    ref = {m: (res, passes) for m, (res, passes) in secondary.items()}
+    res, counts, passes = render_recorded(r, "primary", camera)
+    if counts["packet"] != 1:
+        raise AssertionError(f"render(primary): launches {counts}")
+    ref["primary"] = (res, passes)
+    launches, renderers, decided = {}, {}, 0
+    for name in NEW_ENGINES:
+        cfg = RenderConfig(width=r.cfg.width, height=r.cfg.height,
+                           engine=name)
+        t0 = time.perf_counter()
+        rv = Renderer(r.scene, BuildConfig(), cfg, flat=r.flat,
+                      device=r.device)
+        tb = rv.tables
+        if name == "packet_pipe" and not (
+                torch.equal(tb.nodes8, r.tables.nodes8)
+                and torch.equal(tb.tris12, r.tables.tris12)):
+            raise AssertionError(f"{name}: tables differ from phase 4's")
+        if name == "packet_wide":
+            log(f"[11] packet_wide tables: {tb.num_nodes} 8-ary nodes, "
+                f"nodes_w {tuple(tb.nodes_w.shape)}, tris12 "
+                f"{tuple(tb.tris12.shape)} at tpr {tb.tris_per_row}, "
+                f"{tb.nbytes() / 1e6:.1f} MB, max_leaf_rows "
+                f"{tb.max_leaf_rows}; pack {time.perf_counter() - t0:.1f} s")
+        renderers[name] = rv
+        launches[name] = 0
+        for mode in ALL_MODES:
+            res, counts, passes = render_recorded(rv, mode, camera)
+            others = sum(counts[k] for k in ALL_ENGINES if k != name)
+            if counts[name] != len(passes) or others:
+                raise AssertionError(f"{name} render({mode}): launches "
+                                     f"{counts}")
+            launches[name] += counts[name]
+            ref_res, ref_passes = ref[mode]
+            n_dec = 0
+            for pname, (rays, any_hit, hits) in passes.items():
+                rrays, rany, rhits = ref_passes[pname]
+                tag = f"[11] {name} {mode} pass {pname}"
+                if any_hit != rany:
+                    raise AssertionError(f"{tag}: not phase 8's pass")
+                if not same_rays(rays, rrays):
+                    if name == "packet_pipe" or not n_dec:
+                        raise AssertionError(f"{tag}: not phase 8's rays")
+                    # A hit an earlier pass took where the packet kernel
+                    # missed it sends that path on with other rays: the
+                    # render's own pass meets the oracles, and phase 8's
+                    # rays of this pass are traced again by the engine.
+                    check_pass(tag, r.scene, r.flat, rays, any_hit, hits)
+                    rays, hits = rrays, rv._tracer(*rrays, any_hit)
+                    tag += " (phase 8's rays, traced again)"
+                if any_hit:
+                    if not torch.equal(hits[0] >= 0, rhits[0] >= 0):
+                        raise AssertionError(f"{tag}: tri>=0 differs from "
+                                             "the packet kernel's")
+                elif name == "packet_pipe":
+                    compare(hits, rhits, f"{tag} vs packet kernel")
+                else:
+                    n = decided_by_brute_force(tag, r.scene, rays, hits,
+                                               rhits)
+                    if n:
+                        log(f"{tag}: differs from the packet kernel on {n} "
+                            "rays, each decided by brute_force_mt for "
+                            "packet_wide")
+                    n_dec += n
+                if pname != "primary" or mode == "primary":
+                    check_pass(tag, r.scene, r.flat, rays, any_hit, hits)
+            px = int((res.image != ref_res.image).any(axis=2).sum())
+            if px > n_dec:
+                raise AssertionError(f"[11] {name} render({mode}): {px} "
+                                     "pixels differ from the packet "
+                                     f"engine's image, {n_dec} rays decided")
+            decided += n_dec
+            log(f"[11] {name} render({mode}): {counts[name]} launches; "
+                f"{len(passes)} passes on phase 8's rays, closest hits "
+                f"tri/t/u/v equal to the packet kernel's on every ray but "
+                f"{n_dec} decided by brute force, any hits tri>=0 equal; "
+                f"image bit-equal to the packet engine's but {px} pixels; "
+                "stages "
+                + json.dumps({k: round(v, 3) for k, v in res.stats.items()}))
+    return launches, renderers, decided
+
+
+def wide_slice(wt, rays, any_hit, exact):
+    """A contiguous slice of whole 32-ray packets from the middle of the
+    batch, doubled from WIDE_SLICE0 rays while the twin's time on it stays
+    within WIDE_TWIN_S (its step count sets the time: a degenerate packet
+    walks the whole tree). Returns the slice, the twin's result and work
+    on it, and the twin's seconds."""
+    R = rays[0].shape[0]
+    start = (R // 2) // WARP * WARP
+    n = WIDE_SLICE0
+    while True:
+        n = min(n, R - start)
+        sl = [a[start:start + n] for a in rays]
+        work = work_with_reads(wt)
+        t0 = time.perf_counter()
+        tw = trace_packet_wide_ref(wt, *sl, any_hit=any_hit, exact=exact,
+                                   work=work)
+        secs = time.perf_counter() - t0
+        if secs * 2.5 > WIDE_TWIN_S or start + n >= R or n >= SAMPLE_RAYS:
+            return sl, tw, work, secs
+        n *= 2
+
+
+def phase_wide_twins(wt, secondary, entries):
+    """Phase 11: packet_wide (exact False and True) bit-equal to its twin
+    on a contiguous slice of whole packets of every batch (wide_slice),
+    any-hit tri included. Adds the exact=False twin's work, its tables and
+    its scale to `entries` (batch -> schedule -> (tables, work, scale))."""
+    batches = [("primary", secondary["shadow"][1]["primary"])] + [
+        (p, secondary[m][1][p]) for m in SECONDARY_MODES
+        for p in PASSES[m][1:]]
+    for bname, (rays, any_hit, _) in batches:
+        R = rays[0].shape[0]
+        for exact in (False, True):
+            sl, tw, work, secs = wide_slice(wt, rays, any_hit, exact)
+            n = sl[0].shape[0]
+            compare(trace_packet_wide(wt, *sl, any_hit=any_hit, exact=exact),
+                    tw, f"[11] packet_wide exact={exact} on the {bname} "
+                    "slice vs twin")
+            if not exact:
+                entries[bname]["packet_wide"] = (wt, work, R / n)
+            log(f"[11] packet_wide exact={exact} {bname}: kernel bit-equal "
+                f"to twin on rays {R // 2 // WARP * WARP}..+{n} of {R} "
+                f"({n // WARP} packets, {'any' if any_hit else 'closest'} "
+                f"hit, tri included; twin {secs:.2f} s); per packet "
+                f"{work['node_visits'] / (n / WARP):.1f} node visits, per "
+                f"ray {work['tri_slot_tests'] / n:.2f} slot tests")
+
+
+def phase_new_timing(tables, wt, primary, secondary, entries, full, smi):
+    """Phase 11 times, CUDA events, warm, medians of 10 (3 where one call
+    takes over 2 s): packet, packet_pipe and packet_wide (exact False and
+    True) on phase 5's primary frame and the shadow, AO and diffuse
+    batches, beside the batch's bound (batch_bound over the five twins'
+    work: full counts on the primary frame, phase 9's for packet, ww and
+    ifif; sampled elsewhere). Then the new kernels' twins on the primary
+    frame. Returns the primary bound and the new kernels' rows for the
+    kernels line."""
+    full = {e: (tables, w, 1.0) for e, w in full.items()}
+    for engine in NEW_ENGINES:
+        tb = wt if engine == "packet_wide" else tables
+        w = work_with_reads(tb)
+        ALL_ENGINES[engine][1](tb, *primary, work=w)
+        full[engine] = (tb, w, 1.0)
+    log("[11] primary frame, full counts: " + "; ".join(
+        f"{e} {w['node_visits']} node visits, {w['tri_slot_tests']} slot "
+        f"tests" for e, (_, w, _) in full.items()))
+    batches = {"primary": (primary, False, full),
+               "shadow": secondary["shadow"][1]["shadow"][:2]
+               + (entries["shadow"],),
+               "ao": secondary["ao"][1]["ao"][:2] + (entries["ao"],),
+               "diffuse": secondary["diffuse"][1]["diffuse"][:2]
+               + (entries["diffuse"],)}
+    runs = {"packet": lambda r, a: trace_packet(tables, *r, any_hit=a),
+            "packet_pipe": lambda r, a: trace_packet_pipe(tables, *r,
+                                                          any_hit=a),
+            "packet_wide": lambda r, a: trace_packet_wide(wt, *r, any_hit=a),
+            "packet_wide_exact": lambda r, a: trace_packet_wide(
+                wt, *r, any_hit=a, exact=True)}
+    times, bounds = {}, {}
+    for bname, (rays, any_hit, ent) in batches.items():
+        R = rays[0].shape[0]
+        b, by, least = bounds[bname] = batch_bound(rays, ent)
+        log(f"[11] {bname} batch, {R} rays, "
+            f"{'any' if any_hit else 'closest'} hit: bound {b:.4f} ms by "
+            f"{by} (the least of the five twins' work, {least}'s; "
+            + ("full count" if bname == "primary" else "sampled work") + ")")
+        for name, fn in runs.items():
+            once = cuda_ms(lambda: fn(rays, any_hit), warmup=1, iters=1)[0]
+            iters = 10 if once <= 2000 else 3
+            t = cuda_ms(lambda: fn(rays, any_hit), warmup=1, iters=iters)
+            ms = statistics.median(t)
+            times[bname, name] = ms
+            log(f"[11] {bname} batch: {name} median {ms:.4f} ms of {iters} "
+                f"(min {min(t):.4f}, max {max(t):.4f}) = "
+                f"{R / ms / 1e3:.2f} Mrays/s, {ms / b:.1f}x the batch's "
+                f"bound; on {smi}")
+    rows = {}
+    for engine in NEW_ENGINES:
+        twin = ALL_ENGINES[engine][1]
+        tb = wt if engine == "packet_wide" else tables
+        t = cuda_ms(lambda: twin(tb, *primary), warmup=0, iters=3)
+        rows[engine] = {"ms": times["primary", engine],
+                        "plain_ms": statistics.median(t),
+                        "bound": bounds["primary"][:2]}
+        log(f"[11] {engine} primary frame: twin median "
+            f"{rows[engine]['plain_ms']:.1f} ms of 3 ("
+            + ", ".join(f"{x:.1f}" for x in t) + f"); kernel "
+            f"{rows[engine]['ms']:.4f} ms on {smi}")
+    torch.cuda.synchronize()
+    return bounds["primary"][:2], rows
+
+
+def phase_hairball_wide_refused(hair, device):
+    """Phase 11, last check: the hairball's wide tables exceed the float
+    leaf item's 2**19 triangle rows at tris_per_row 4, and tables_from_wide
+    must refuse them (a limit kept from the reference)."""
+    t0 = time.perf_counter()
+    flat = build_accel(hair, LBVH_CFG, device=device)
+    wp = pack_wide_bvh(flat, hair.tri_verts(), tris_per_row=4)
+    try:
+        tables_from_wide(wp, device)
+    except ValueError as e:
+        log(f"[11] hairball packet_wide: {wp.tris12.shape[0]} triangle rows;"
+            f" tables_from_wide refused them as it must: {e} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        return
+    raise AssertionError("the hairball's wide tables were not refused")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -1163,11 +1497,26 @@ def main():
     phase_soup_variants(device)
     variant_launches = phase_variant_renders(r, secondary)
     works = phase_variant_twins(r.tables, secondary)
-    primary_bnd, variant_rows = phase_variant_timing(
+    _, variant_rows, full_counts = phase_variant_timing(
         r.tables, (batch.orig, batch.dirn, batch.tmin, batch.tmax),
         secondary, works, smi)
-    del secondary
     phase_hairball_ao(device, hair, smi)
+
+    phase_soup_variants(device, ("packet_pipe",), "[11]")
+    phase_soup_wide(device)
+    new_launches, new_r, _ = phase_new_renders(r, secondary)
+    wt = new_r["packet_wide"].tables
+    pipe = {"packet_pipe": NEW_ENGINES["packet_pipe"]}
+    pipe_works = phase_variant_twins(r.tables, secondary, pipe, "[11]")
+    entries = {b: {e: (r.tables, w, scale)
+                   for e, w in {**bw, **pipe_works[b][1]}.items()}
+               for b, (scale, bw) in works.items()}
+    phase_wide_twins(wt, secondary, entries)
+    primary_bnd, new_rows = phase_new_timing(
+        r.tables, wt, (batch.orig, batch.dirn, batch.tmin, batch.tmax),
+        secondary, entries, full_counts, smi)
+    del secondary, new_r
+    phase_hairball_wide_refused(hair, device)
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     kernels = [{
@@ -1189,13 +1538,16 @@ def main():
         "max_abs_err": scan_err, "ms": conf["max"],
         "plain_ms": conf["plain"], "bound_ms": conf["bound"][0],
         "bound_by": conf["bound"][1], "library_ms": conf["library"]})
-    for name in VARIANTS:
+    variant_launches.update(new_launches)
+    variant_rows.update(new_rows)
+    for name in VARIANTS + tuple(NEW_ENGINES):
         row = variant_rows[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": ENGINES[name][2],
-            "replaces": ENGINES[name][3], "launches": variant_launches[name],
+            "name": name, "route": "cuda", "source": ALL_ENGINES[name][2],
+            "replaces": ALL_ENGINES[name][3],
+            "launches": variant_launches[name],
             "max_abs_err": 0.0, "ms": row["ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound"][0], "bound_by": row["bound"][1],
+                "bound_ms": primary_bnd[0], "bound_by": primary_bnd[1],
             "library_ms": None})
     log(json.dumps({"kernels": kernels}))
     log(smi)

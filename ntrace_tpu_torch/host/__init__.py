@@ -29,6 +29,7 @@ from ntrace_tpu_torch.host.bvh.packed import (NODE_LANES, TRI_LANES,
                                               PackedBVH, pack_bvh,
                                               pick_layout)
 from ntrace_tpu_torch.host.bvh.sbvh import build_sbvh
+from ntrace_tpu_torch.host.bvh.wide_packed import WidePackedBVH, pack_wide_bvh
 from ntrace_tpu_torch.host.core import BuildConfig, Camera, RenderConfig, Scene
 from ntrace_tpu_torch.host.ops.morton import morton2d
 from ntrace_tpu_torch.host.scenes import (default_camera, get_scene,
@@ -38,8 +39,9 @@ from ntrace_tpu_torch.host.trace.cpu import (golden_mismatches,
 
 __all__ = [
     "BuildConfig", "Camera", "FlatBVH", "NODE_LANES", "PackedBVH",
-    "RenderConfig", "Scene", "TRI_LANES", "brute_force_anyhit",
-    "brute_force_mt", "build_median_bvh", "build_sbvh", "default_camera",
-    "flatten_bvh", "get_scene", "golden_mismatches", "make_random_soup",
-    "morton2d", "pack_bvh", "pick_layout", "trace_cpu_golden",
+    "RenderConfig", "Scene", "TRI_LANES", "WidePackedBVH",
+    "brute_force_anyhit", "brute_force_mt", "build_median_bvh", "build_sbvh",
+    "default_camera", "flatten_bvh", "get_scene", "golden_mismatches",
+    "make_random_soup", "morton2d", "pack_bvh", "pack_wide_bvh",
+    "pick_layout", "trace_cpu_golden",
 ]

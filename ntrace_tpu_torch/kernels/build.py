@@ -41,11 +41,16 @@ _I = ctypes.c_int
 _TRAVERSAL = (ctypes.c_int,
               [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P])
 SIGNATURES = {
-    # packet_trace.cu, packet_ww.cu, packet_ifif.cu: one signature
-    # (csrc/trace_common.cuh NTRACE_TRAVERSAL_ENTRY).
+    # packet_trace.cu, packet_ww.cu, packet_ifif.cu, packet_pipe.cu: one
+    # signature (csrc/trace_common.cuh NTRACE_TRAVERSAL_ENTRY).
     "ntrace_packet_trace": _TRAVERSAL,
     "ntrace_packet_ww": _TRAVERSAL,
     "ntrace_packet_ifif": _TRAVERSAL,
+    "ntrace_packet_pipe": _TRAVERSAL,
+    "ntrace_packet_wide": (
+        ctypes.c_int,
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    ),
     "ntrace_dense_walk": (
         ctypes.c_int,
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],

@@ -15,11 +15,17 @@ and `_path_trace` (1494-1548); and the dense screen-space primary engine:
 `_binraster_contract_ok` (1190-1201).
 
 Engines. "auto", "wavefront" and "packet" trace through
-`trace/packet.py`; "packet_ww" and "packet_ifif" through
-`trace/packet_ww.py` and `trace/packet_ifif.py` (the registry's
-tesla_persistent_while_while and tesla_persistent_speculative_while_while,
-`trace/registry.py`); each runs its CUDA kernel on a CUDA device and its
-torch twin on the CPU, over one packed table on the device (no forest).
+`trace/packet.py`; "packet_ww", "packet_ifif" and "packet_pipe" through
+`trace/packet_ww.py`, `trace/packet_ifif.py` and `trace/packet_pipe.py`
+(the registry's tesla_persistent_while_while and
+tesla_persistent_speculative_while_while, `trace/registry.py`); each runs
+its CUDA kernel on a CUDA device and its torch twin on the CPU, over one
+packed table on the device (no forest). "packet_wide" (the registry's
+tesla_persistent_packet) packs the flat tree into the 8-ary tables
+(`host.pack_wide_bvh`, 4 triangles a row, renderer.py:580-596) and traces
+them through `trace/packet_wide.py` with the conservative frustum test
+(exact=False); the reference's TPU knobs (packet rows, interleave, VMEM
+limit, light and stats outputs) have no counterpart.
 "cpu_golden" runs the host golden tracer. engine="binraster_dense" arms
 the dense engine (`trace/binraster_dense.py`) for canonical primary frames
 and keeps the packet kernel for every other ray. The port reads no
@@ -29,10 +35,11 @@ constants), "auto" means the packet kernel alone, and seed_secondary and
 stage_secondary "auto" mean off. builder="lbvh" with engine "auto" or
 "packet" and no `flat` takes the packed-direct path on every device: the
 tables are built on the renderer's device (bvh/lbvh.py:build_lbvh_packed)
-and traced in place, and `self.flat` is None; with packet_ww or
-packet_ifif it takes the flat route (build_lbvh_flat, then the host pack),
-as the reference does. Secondary rays draw their random numbers from
-`ray/rng.py`, bit-equal to the reference's jax.random. Other modes,
+and traced in place, and `self.flat` is None; with packet_ww,
+packet_ifif, packet_pipe or packet_wide it takes the flat route
+(build_lbvh_flat, then the host pack), as the reference does. Secondary
+rays draw their random numbers from `ray/rng.py`, bit-equal to the
+reference's jax.random. Other modes,
 engines, builders and options raise NotImplementedError and name the
 ROADMAP item that ports them.
 """
@@ -49,22 +56,31 @@ import torch
 from ntrace_tpu_torch.bvh.lbvh import build_lbvh_flat, build_lbvh_packed
 from ntrace_tpu_torch.host import (BuildConfig, Camera, FlatBVH, RenderConfig,
                                    Scene, build_median_bvh, build_sbvh,
-                                   flatten_bvh, pack_bvh, trace_cpu_golden)
+                                   flatten_bvh, pack_bvh, pack_wide_bvh,
+                                   trace_cpu_golden)
 from ntrace_tpu_torch.host import pick_layout as _pick_layout
 from ntrace_tpu_torch.ray import raygen, rng
 from ntrace_tpu_torch.ray.pixeltable import pixel_table
 from ntrace_tpu_torch.ray.raybatch import RayBatch, morton_sort_rays, unsort
-from ntrace_tpu_torch.tables import tables_from_device, tables_from_packed
+from ntrace_tpu_torch.tables import (tables_from_device, tables_from_packed,
+                                     tables_from_wide)
 from ntrace_tpu_torch.trace import binraster_dense as bd
 from ntrace_tpu_torch.trace.packet import trace_packet
 from ntrace_tpu_torch.trace.packet_ifif import trace_packet_ifif
+from ntrace_tpu_torch.trace.packet_pipe import trace_packet_pipe
+from ntrace_tpu_torch.trace.packet_wide import trace_packet_wide
 from ntrace_tpu_torch.trace.packet_ww import trace_packet_ww
 from ntrace_tpu_torch.utils.timing import StageTimer
 
 PACKET_ENGINES = ("auto", "wavefront", "packet")
 # Engines that trace the packed tables, by the name the renderer keeps.
 TABLE_TRACERS = {"packet": trace_packet, "packet_ww": trace_packet_ww,
-                 "packet_ifif": trace_packet_ifif}
+                 "packet_ifif": trace_packet_ifif,
+                 "packet_pipe": trace_packet_pipe}
+# The 8-wide packet engine traces its own tables (host.pack_wide_bvh at 4
+# triangles a row, as the reference renderer packs them), with the
+# conservative frustum test.
+WIDE_TRIS_PER_ROW = 4
 # The reference's other engines, and the ROADMAP item that ports each.
 UNPORTED_ENGINES = {
     "stack": "queue 1, item 2: the stack2 engine",
@@ -74,8 +90,7 @@ UNPORTED_ENGINES = {
     "binraster": "queue 2: the v1 screen-space engine, binraster_prep_fast "
                  "and its kernel",
     **{e: "queue 2: the rest of the packet family"
-       for e in ("packet_pipe", "packet_wide", "packet_bfs", "packet_dleaf",
-                 "packet_bdl")},
+       for e in ("packet_bfs", "packet_dleaf", "packet_bdl")},
 }
 MODES = ("primary", "shadow", "ao", "diffuse", "path")
 # The dense engine's settings: the reference renderer's code defaults for
@@ -232,7 +247,8 @@ class Renderer:
             engine = "auto"
         if engine in PACKET_ENGINES:
             self.engine = "packet"
-        elif engine in TABLE_TRACERS or engine == "cpu_golden":
+        elif engine in TABLE_TRACERS or engine in ("packet_wide",
+                                                    "cpu_golden"):
             self.engine = engine
         elif engine in UNPORTED_ENGINES:
             raise NotImplementedError(
@@ -268,6 +284,14 @@ class Renderer:
 
             def tracer(o, d, tn, tx, any_hit):
                 return trace(self.tables, o, d, tn, tx, any_hit=any_hit)
+        elif self.engine == "packet_wide":
+            self.packed = pack_wide_bvh(self.flat, scene.tri_verts(),
+                                        tris_per_row=WIDE_TRIS_PER_ROW)
+            self.tables = tables_from_wide(self.packed, self.device)
+
+            def tracer(o, d, tn, tx, any_hit):
+                return trace_packet_wide(self.tables, o, d, tn, tx,
+                                         any_hit=any_hit, exact=False)
         else:
             def tracer(o, d, tn, tx, any_hit):
                 rec = trace_cpu_golden(

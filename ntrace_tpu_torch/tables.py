@@ -7,6 +7,9 @@ the JAX and torch paths trace the very same bytes. `tables_from_device`
 wraps tables that are already on the device, as the LBVH build emits them
 (bvh/lbvh.py:build_lbvh_packed), with no host round trip. The row layout
 (`tris_per_row`, `nodes_per_row`) is read from the build, never assumed.
+`tables_from_wide` does the same for the 8-ary tables of
+`host.pack_wide_bvh` (the reference renderer's packet_wide engine,
+renderer.py:580-589).
 """
 
 from __future__ import annotations
@@ -89,3 +92,84 @@ def tables_from_device(pnodes: torch.Tensor, ptris: torch.Tensor,
                         nodes_per_row=int(nodes_per_row),
                         tris_per_row=int(tris_per_row),
                         num_nodes=int(num_nodes))
+
+
+# The wide tables' two limits, kept from the reference
+# (host/bvh/wide_packed.py): a leaf item is a float, exact while triangle
+# rows stay below 2**19, and it holds at most 32 rows of a leaf.
+WIDE_MAX_TRI_ROWS = 2 ** 19
+WIDE_MAX_LEAF_ROWS = 32
+
+
+@dataclass(frozen=True)
+class WideTables:
+    """The 8-ary tables of host.pack_wide_bvh on a device: nodes_w (NW, 128)
+    with child slot k at lanes 16k..16k+6 (bounds, then the work item), and
+    the shared triangle-row layout. Construction refuses tables past the
+    two limits above, with a ValueError that names the limit."""
+    nodes_w: torch.Tensor   # (NW, 128) float32, contiguous
+    tris12: torch.Tensor    # (TR, 128) float32, contiguous
+    tris_per_row: int
+    num_nodes: int
+
+    def __post_init__(self):
+        rows = self.tris12.shape[0]
+        if rows >= WIDE_MAX_TRI_ROWS:
+            raise ValueError(
+                f"{rows} triangle rows: the wide leaf item is exact only "
+                f"below 2**19 = {WIDE_MAX_TRI_ROWS} rows")
+        _check_layout(1, self.tris_per_row)
+        for t in (self.nodes_w, self.tris12):
+            _check_table(t)
+        if self.nodes_w.device != self.tris12.device:
+            raise ValueError(f"nodes_w on {self.nodes_w.device}, tris12 on "
+                             f"{self.tris12.device}")
+        if self.max_leaf_rows > WIDE_MAX_LEAF_ROWS:
+            raise ValueError(
+                f"a leaf may span {self.max_leaf_rows} triangle rows; the "
+                f"wide leaf item holds at most {WIDE_MAX_LEAF_ROWS}")
+
+    @property
+    def device(self) -> torch.device:
+        return self.nodes_w.device
+
+    def nbytes(self) -> int:
+        return (self.nodes_w.numel() + self.tris12.numel()) * 4
+
+    @cached_property
+    def max_leaf_rows(self) -> int:
+        """The most triangle rows a leaf may span (0 without leaves).
+
+        An item holds rows - 1 clipped to 31, so a leaf whose item says 32
+        is measured by where it can end: leaves are packed densely in
+        order, so it ends in the row where the next leaf starts or the row
+        before (the larger is taken), and the last leaf ends at the last
+        row that holds a triangle. Computed once (one host read)."""
+        items = self.nodes_w[:self.num_nodes, 6::16].reshape(-1)
+        v = (-items[items < 0] - 1).to(torch.int64)
+        if not v.numel():
+            return 0
+        first, rem = v >> 5, v & 31
+        clipped = first[rem == 31]
+        if not clipped.numel():
+            return int(rem.max()) + 1
+        tpr = self.tris_per_row
+        ids = self.tris12[:, :tpr * TRI_LANES].reshape(-1, tpr, TRI_LANES)
+        last = torch.nonzero((ids[:, :, 9] >= 0).any(dim=1)).max()
+        starts = torch.unique(first)
+        k = torch.searchsorted(starts, clipped, right=True)
+        nxt = starts[k.clamp(max=starts.numel() - 1)]
+        span = torch.where(k < starts.numel(), nxt - clipped + 1,
+                           last - clipped + 1)
+        return max(int(rem.max()) + 1, int(span.max()))
+
+
+def tables_from_wide(wp, device) -> WideTables:
+    """Host (numpy) wide tables (host.WidePackedBVH), copied to `device`."""
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(
+            a, dtype=np.float32)).to(device).contiguous()
+
+    return WideTables(nodes_w=put(wp.nodes_w), tris12=put(wp.tris12),
+                      tris_per_row=int(wp.tris_per_row),
+                      num_nodes=int(wp.num_nodes))

@@ -21,7 +21,7 @@ import torch
 
 from ntrace_tpu_torch.host import NODE_LANES, TRI_LANES
 from ntrace_tpu_torch.ops.aabb import safe_inv_dir
-from ntrace_tpu_torch.tables import PackedTables
+from ntrace_tpu_torch.tables import PackedTables, WideTables
 
 INF = 3.0e38
 INT_MAX = 0x7FFFFFFF
@@ -95,15 +95,16 @@ def launch_traversal(name: str, tables, orig, dirn, tmin, tmax, any_hit,
 def slab_child(rec: torch.Tensor, base: int, ox, oy, oz, ix, iy, iz,
                tmin, tmax):
     """Slab-test the child whose 6 bounds start at lane `base` of the (N, 16)
-    node records. NaN-suppressing min/max (torch.fmin/fmax), entry clamped
-    to tmin, exit to tmax (the running hit distance).
+    node records (leading dimensions broadcast, as in mt_row_best).
+    NaN-suppressing min/max (torch.fmin/fmax), entry clamped to tmin, exit
+    to tmax (the running hit distance).
     Returns (hit, entry t), each (N,)."""
-    tlo_x = (rec[:, base + 0] - ox) * ix
-    thi_x = (rec[:, base + 1] - ox) * ix
-    tlo_y = (rec[:, base + 2] - oy) * iy
-    thi_y = (rec[:, base + 3] - oy) * iy
-    tlo_z = (rec[:, base + 4] - oz) * iz
-    thi_z = (rec[:, base + 5] - oz) * iz
+    tlo_x = (rec[..., base + 0] - ox) * ix
+    thi_x = (rec[..., base + 1] - ox) * ix
+    tlo_y = (rec[..., base + 2] - oy) * iy
+    thi_y = (rec[..., base + 3] - oy) * iy
+    tlo_z = (rec[..., base + 4] - oz) * iz
+    thi_z = (rec[..., base + 5] - oz) * iz
     begin = torch.fmax(
         torch.fmax(torch.fmin(tlo_x, thi_x), torch.fmin(tlo_y, thi_y)),
         torch.fmax(torch.fmin(tlo_z, thi_z), tmin))
@@ -116,19 +117,20 @@ def slab_child(rec: torch.Tensor, base: int, ox, oy, oz, ix, iy, iz,
 def mt_row_best(trow: torch.Tensor, ox, oy, oz, dx, dy, dz, tn, tpr: int):
     """Moller-Trumbore of each ray against the `tpr` slots of its own row.
 
-    trow: (N, 128) rows, one per ray; ray components (N,).
+    trow: (N, 128) rows, one per ray; ray components (N,). Leading
+    dimensions broadcast: (P, 1, 128) rows against (P, 32) rays test each
+    row against its packet's rays, with the same elementwise arithmetic.
     Returns (t, id, u, v) of each ray's lexicographic (t, id) minimum over
     its row's valid slots; a row with no valid slot gives (INF, INT_MAX),
     which a caller must never accept.
     """
-    n = trow.shape[0]
-    s = trow[:, : tpr * TRI_LANES].reshape(n, tpr, TRI_LANES)
-    v0x, v0y, v0z = s[:, :, 0], s[:, :, 1], s[:, :, 2]
-    e1x, e1y, e1z = s[:, :, 3], s[:, :, 4], s[:, :, 5]
-    e2x, e2y, e2z = s[:, :, 6], s[:, :, 7], s[:, :, 8]
-    tid = s[:, :, 9].to(torch.int32)          # truncation, as astype(int32)
-    ox, oy, oz = ox[:, None], oy[:, None], oz[:, None]
-    dx, dy, dz = dx[:, None], dy[:, None], dz[:, None]
+    s = trow[..., : tpr * TRI_LANES].unflatten(-1, (tpr, TRI_LANES))
+    v0x, v0y, v0z = s[..., 0], s[..., 1], s[..., 2]
+    e1x, e1y, e1z = s[..., 3], s[..., 4], s[..., 5]
+    e2x, e2y, e2z = s[..., 6], s[..., 7], s[..., 8]
+    tid = s[..., 9].to(torch.int32)           # truncation, as astype(int32)
+    ox, oy, oz = ox[..., None], oy[..., None], oz[..., None]
+    dx, dy, dz = dx[..., None], dy[..., None], dz[..., None]
     px = dy * e2z - dz * e2y
     py = dz * e2x - dx * e2z
     pz = dx * e2y - dy * e2x
@@ -142,20 +144,21 @@ def mt_row_best(trow: torch.Tensor, ox, oy, oz, dx, dy, dz, tn, tpr: int):
     qz = tvx * e1y - tvy * e1x
     v = (dx * qx + dy * qy + dz * qz) * inv
     t = (e2x * qx + e2y * qy + e2z * qz) * inv
+    tid, t = torch.broadcast_tensors(tid, t)
     valid = ((det != 0) & (tid >= 0) & (u >= 0) & (v >= 0)
-             & (u + v <= 1) & (t > tn[:, None]))
+             & (u + v <= 1) & (t > tn[..., None]))
     tt = torch.where(valid, t, torch.full_like(t, INF))
     ii = torch.where(valid, tid, torch.full_like(tid, INT_MAX))
-    best_t = tt.min(dim=1).values
-    cand = tt == best_t[:, None]
+    best_t = tt.min(dim=-1).values
+    cand = tt == best_t[..., None]
     best_id = torch.where(cand, ii, torch.full_like(ii, INT_MAX)).min(
-        dim=1).values
+        dim=-1).values
     # first slot holding the (t, id) minimum (equal (t, id) pairs are the
     # same triangle, so their u, v agree too)
-    pick = (cand & (ii == best_id[:, None])).to(torch.uint8).argmax(
-        dim=1, keepdim=True)
-    return (best_t, best_id, u.gather(1, pick)[:, 0],
-            v.gather(1, pick)[:, 0])
+    pick = (cand & (ii == best_id[..., None])).to(torch.uint8).argmax(
+        dim=-1, keepdim=True)
+    return (best_t, best_id, u.gather(-1, pick)[..., 0],
+            v.gather(-1, pick)[..., 0])
 
 
 def fetch_nodes(nodes_flat: torch.Tensor, ref: torch.Tensor, npr: int,
@@ -238,20 +241,28 @@ def retire(s: RayState, done: torch.Tensor, out) -> RayState:
     return s
 
 
-def work_with_reads(tables: PackedTables) -> dict:
+def _node_table(tables) -> tuple[int, int]:
+    """(records, floats per record) of the node table: 16-float records of
+    PackedTables, or one 128-float row per node of WideTables."""
+    if isinstance(tables, WideTables):
+        return tables.nodes_w.shape[0], 128
+    return tables.nodes8.shape[0] * tables.nodes_per_row, NODE_LANES
+
+
+def work_with_reads(tables: PackedTables | WideTables) -> dict:
     """A `work` dict for a twin that also marks which node records
     ("nodes_read") and triangle rows ("rows_read") the traversal reads."""
-    dev = tables.nodes8.device
-    n_nodes = tables.nodes8.shape[0] * tables.nodes_per_row
+    dev = tables.device
     return {"node_visits": 0, "tri_slot_tests": 0,
-            "nodes_read": torch.zeros(n_nodes, dtype=torch.bool, device=dev),
+            "nodes_read": torch.zeros(_node_table(tables)[0],
+                                      dtype=torch.bool, device=dev),
             "rows_read": torch.zeros(tables.tris12.shape[0],
                                      dtype=torch.bool, device=dev)}
 
 
-def read_bytes(tables: PackedTables, work: dict) -> int:
+def read_bytes(tables: PackedTables | WideTables, work: dict) -> int:
     """Bytes of the node records and triangle slots marked in `work`."""
-    return 4 * (int(work["nodes_read"].sum()) * NODE_LANES
+    return 4 * (int(work["nodes_read"].sum()) * _node_table(tables)[1]
                 + int(work["rows_read"].sum()) * tables.tris_per_row
                 * TRI_LANES)
 

@@ -70,6 +70,21 @@ def trace_packet_ww_ref(tables: PackedTables, orig, dirn, tmin, tmax, *,
     work["node_visits"] and triangle slot tests (rows times
     tris_per_row) into work["tri_slot_tests"], as trace_packet_ref does.
     """
+    return run_while_while(tables, orig, dirn, tmin, tmax, any_hit, work,
+                           near_by_entry)
+
+
+def near_by_entry(s: RayState, i: torch.Tensor, b0, b1, cnt0):
+    """packet_ww.cu's near-first rule: the child entered first; a tie goes
+    to child 0."""
+    return b0 <= b1
+
+
+def run_while_while(tables: PackedTables, orig, dirn, tmin, tmax,
+                    any_hit: bool, work: dict | None, near_first):
+    """The while-while state machine shared by the ww and pipe twins.
+    near_first(s, i, b0, b1, cnt0) says, for rays i whose node has both
+    children hit and internal, whether child 0 is descended first."""
     check_rays(tables, orig, dirn, tmin, tmax)
     check_leaf_runs(tables)
     dev = orig.device
@@ -93,7 +108,7 @@ def trace_packet_ww_ref(tables: PackedTables, orig, dirn, tmin, tmax, *,
             top = (s.qn[leaf] - 1).long()
             tally(work, s.item[inner], s.queue[leaf, top] >> 5, tpr)
         if inner.numel():
-            _node_step(s, inner, nodes, npr, lanes16)
+            _node_step(s, inner, nodes, npr, lanes16, near_first)
         if leaf.numel():
             _leaf_step(s, leaf, tris, tpr, any_hit)
         # Loop exits of the kernel: the node loop ends when the ray is done
@@ -105,10 +120,12 @@ def trace_packet_ww_ref(tables: PackedTables, orig, dirn, tmin, tmax, *,
     return tuple(out)
 
 
-def _node_step(s: RayState, i: torch.Tensor, nodes, npr: int, lanes16):
+def _node_step(s: RayState, i: torch.Tensor, nodes, npr: int, lanes16,
+               near_first):
     """Rays i visit their node: hit leaf children join the queue (child 0
-    first), the nearer hit internal child is descended and the farther
-    pushed; with no internal child hit the ray pops or is done."""
+    first), the nearer hit internal child (by near_first) is descended and
+    the farther pushed; with no internal child hit the ray pops or is
+    done."""
     s.steps[i] += 1
     rec = fetch_nodes(nodes, s.item[i], npr, lanes16)
     h0, b0, h1, b1, enc0, enc1, cnt0, cnt1 = visit_nodes(
@@ -122,7 +139,7 @@ def _node_step(s: RayState, i: torch.Tensor, nodes, npr: int, lanes16):
     s.qn[i] = qn
     i0, i1 = h0 & ~l0, h1 & ~l1
     both = i0 & i1
-    first0 = b0 <= b1               # near child first; a tie goes to child 0
+    first0 = near_first(s, i, b0, b1, cnt0)
     sp = s.sp[i]
     slot = sp[both].clamp(max=STACK_DEPTH - 1).long()
     s.stack[i[both], slot] = torch.where(first0, enc1, enc0)[both]

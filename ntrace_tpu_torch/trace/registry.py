@@ -7,8 +7,10 @@ aliases so reference benchmark scripts translate directly. Every name
 resolves, whether or not its engine is ported; the port's Renderer takes
 the resolved engine (RenderConfig(engine=resolve_kernel(name).engine)) and
 raises NotImplementedError, naming the ROADMAP item, for an engine it does
-not have yet. packet_ww and packet_ifif are the CUDA kernels of the
-schedules their names stand for (csrc/packet_ww.cu, csrc/packet_ifif.cu).
+not have yet. packet_ww, packet_ifif and packet_wide are the CUDA kernels
+of the schedules their names stand for (csrc/packet_ww.cu,
+csrc/packet_ifif.cu, csrc/packet_wide.cu: Aila and Laine's packet kernel);
+packet_pipe is csrc/packet_pipe.cu.
 """
 
 from __future__ import annotations

@@ -356,7 +356,9 @@ def test_c_entry_points_match_ctypes_signatures():
     each name."""
     assert [p.name for p in kbuild.sources()] == ["dense_trace.cu",
                                                   "packet_ifif.cu",
+                                                  "packet_pipe.cu",
                                                   "packet_trace.cu",
+                                                  "packet_wide.cu",
                                                   "packet_ww.cu",
                                                   "row_scan.cu"]
     found = {}

@@ -21,6 +21,7 @@ from ntrace_tpu.bvh.packed import pack_bvh as ref_pack
 from ntrace_tpu.bvh.packed import pick_layout as ref_pick_layout
 from ntrace_tpu.bvh.sbvh import build_sbvh as ref_sbvh
 from ntrace_tpu.bvh.sbvh import sbvh_impl_tag as ref_impl_tag
+from ntrace_tpu.bvh.wide_packed import pack_wide_bvh as ref_pack_wide
 from ntrace_tpu.core import BuildConfig as RefBuildConfig
 from ntrace_tpu.scenes import default_camera as ref_camera
 from ntrace_tpu.scenes import get_scene as ref_get_scene
@@ -124,6 +125,21 @@ def test_pack_equal(tpr, npr):
     assert _equal(pr, pg)
     assert (host.pick_layout(got.nodes.shape[0], 4000, avg_leaf=5.0)
             == ref_pick_layout(got.nodes.shape[0], 4000, avg_leaf=5.0))
+
+
+@pytest.mark.parametrize("builder,kw", [
+    ("binned_sah", dict(sah_tri_cost=0.02, max_leaf_size=48)),
+    ("median", {}),
+])
+def test_pack_wide_equal(builder, kw):
+    """host/bvh/wide_packed.py packs the same nodes_w and tris12 bytes as
+    the reference's, on two trees."""
+    scene_ref, scene_got = _scene_pair("conference@4000")
+    ref, got = _flat_pair(scene_ref, scene_got, builder, **kw)
+    pr = ref_pack_wide(ref, scene_ref.tri_verts(), tris_per_row=4)
+    pg = host.pack_wide_bvh(got, scene_got.tri_verts(), tris_per_row=4)
+    assert type(pg) is host.WidePackedBVH
+    assert _equal(pr, pg)
 
 
 @pytest.fixture(scope="module")

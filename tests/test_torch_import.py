@@ -23,6 +23,7 @@ PORT_MODULES = (
     "ntrace_tpu_torch.host.bvh.median",
     "ntrace_tpu_torch.host.bvh.sbvh",
     "ntrace_tpu_torch.host.bvh.packed",
+    "ntrace_tpu_torch.host.bvh.wide_packed",
     "ntrace_tpu_torch.host.bvh.golden",
     "ntrace_tpu_torch.host.ops",
     "ntrace_tpu_torch.host.ops.aabb",
@@ -48,6 +49,8 @@ PORT_MODULES = (
     "ntrace_tpu_torch.trace.packet",
     "ntrace_tpu_torch.trace.packet_ww",
     "ntrace_tpu_torch.trace.packet_ifif",
+    "ntrace_tpu_torch.trace.packet_pipe",
+    "ntrace_tpu_torch.trace.packet_wide",
     "ntrace_tpu_torch.trace.registry",
     "ntrace_tpu_torch.trace.binraster",
     "ntrace_tpu_torch.trace.binraster_dense",

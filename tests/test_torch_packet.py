@@ -189,7 +189,9 @@ def test_library_path_keyed_by_sources():
     assert path == kbuild.library_path()
     assert [p.name for p in kbuild.sources()] == ["dense_trace.cu",
                                                   "packet_ifif.cu",
+                                                  "packet_pipe.cu",
                                                   "packet_trace.cu",
+                                                  "packet_wide.cu",
                                                   "packet_ww.cu",
                                                   "row_scan.cu"]
     assert "--fmad=false" in kbuild.NVCC_FLAGS

@@ -1,6 +1,7 @@
-"""The while-while and speculative while-while traversals of the port
-(torch twins on the CPU, CUDA kernels on a card) against the JAX Pallas
-kernels (interpret mode), the brute-force oracles and the packet twin.
+"""The while-while, speculative while-while and pipelined while-while
+traversals of the port (torch twins on the CPU, CUDA kernels on a card)
+against the JAX Pallas kernels (interpret mode), the brute-force oracles
+and the packet twin.
 
 Tolerances: hit ids exactly equal everywhere. Against the JAX kernels t/u/v
 within the reference's own packet-test tolerances (tests/test_packet.py:
@@ -21,15 +22,21 @@ from ntrace_tpu.bvh.golden import brute_force_anyhit, brute_force_mt
 from ntrace_tpu.bvh.median import build_median_bvh
 from ntrace_tpu.bvh.packed import pack_bvh
 from ntrace_tpu.bvh.sbvh import build_sbvh
-from ntrace_tpu.core import BuildConfig
+from ntrace_tpu.core import BuildConfig, RenderConfig
+from ntrace_tpu.scenes import default_camera
 from ntrace_tpu.trace.packet_ifif import trace_packet_ifif as jax_ifif
+from ntrace_tpu.trace.packet_pipe import trace_packet_pipe as jax_pipe
 from ntrace_tpu.trace.packet_ww import trace_packet_ww as jax_ww
+from ntrace_tpu_torch.render.renderer import Renderer
 from ntrace_tpu_torch.tables import tables_from_packed
-from ntrace_tpu_torch.trace import packet_ifif, packet_ww, registry
+from ntrace_tpu_torch.trace import (packet_ifif, packet_pipe, packet_ww,
+                                    registry)
 from ntrace_tpu_torch.trace.packet import trace_packet_ref
 from ntrace_tpu_torch.trace.packet_common import read_bytes, work_with_reads
 from ntrace_tpu_torch.trace.packet_ifif import (trace_packet_ifif,
                                                 trace_packet_ifif_ref)
+from ntrace_tpu_torch.trace.packet_pipe import (trace_packet_pipe,
+                                                trace_packet_pipe_ref)
 from ntrace_tpu_torch.trace.packet_ww import (trace_packet_ww,
                                               trace_packet_ww_ref)
 
@@ -40,6 +47,8 @@ KERNELS = {
     "ww": (packet_ww, trace_packet_ww, trace_packet_ww_ref, jax_ww),
     "ifif": (packet_ifif, trace_packet_ifif, trace_packet_ifif_ref,
              jax_ifif),
+    "pipe": (packet_pipe, trace_packet_pipe, trace_packet_pipe_ref,
+             jax_pipe),
 }
 
 
@@ -156,7 +165,8 @@ def test_twin_counts_its_work(soup_small, flat_small, rng, kernel):
 
 
 @pytest.mark.parametrize("twin", [trace_packet_ref, trace_packet_ww_ref,
-                                  trace_packet_ifif_ref])
+                                  trace_packet_ifif_ref,
+                                  trace_packet_pipe_ref])
 def test_twin_marks_what_it_reads(soup_small, flat_small, rng, twin):
     """work_with_reads marks the node records and triangle rows a twin
     reads, beside the same counts as a plain work dict; a ray pointing away
@@ -205,7 +215,7 @@ def test_leaf_runs_longer_than_32_rows_are_refused(soup_small, flat_small):
     _, tables = _tables(soup_small, fat, 4, 1)
     assert tables.max_leaf_rows > 32
     rays = _torch(*random_rays(np.random.default_rng(0), 4))
-    for wrapper in (trace_packet_ww, trace_packet_ifif):
+    for wrapper in (trace_packet_ww, trace_packet_ifif, trace_packet_pipe):
         with pytest.raises(ValueError, match="32"):
             wrapper(tables, *rays)
     _, ok = _tables(soup_small, flat_small, 4, 1)
@@ -250,11 +260,19 @@ def test_cuda_input_never_reaches_twin(soup_small, flat_small, rng,
     ("tesla_persistent_packet", "packet_wide"),
     ("kepler_dynamic_fetch", "packet"),
 ])
-def test_registry_resolves_reference_names(name, engine):
+def test_registry_resolves_reference_names(soup_small, name, engine):
+    """Each reference name resolves to its engine, and render() runs
+    through it (the twins on the CPU)."""
     assert registry.resolve_kernel(name).engine == engine
     assert name in registry.kernel_names()
     with pytest.raises(ValueError):
         registry.resolve_kernel("no_such_kernel")
+    cfg = RenderConfig(width=8, height=8,
+                       engine=registry.resolve_kernel(name).engine)
+    res = Renderer(soup_small, BuildConfig(builder="binned_sah"), cfg,
+                   flat=_flat(soup_small), device="cpu").render(
+                       default_camera("soup"))
+    assert res.image.shape == (8, 8, 3) and (res.hit_tri >= 0).any()
 
 
 @pytest.mark.cuda

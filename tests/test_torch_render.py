@@ -20,6 +20,7 @@ from ntrace_tpu_torch.ray.pixeltable import pixel_table
 from ntrace_tpu_torch.ray.raybatch import RayBatch
 from ntrace_tpu_torch.render import renderer as port
 from ntrace_tpu_torch.render.renderer import Renderer, build_accel
+from ntrace_tpu_torch.tables import WideTables
 
 from conftest import random_rays
 
@@ -75,11 +76,12 @@ def test_packet_engine_names_resolve(conference, engine):
     assert r.tables.nodes_per_row == r.packed.nodes_per_row
 
 
-@pytest.mark.parametrize("engine", ["packet_ww", "packet_ifif"])
+@pytest.mark.parametrize("engine", ["packet_ww", "packet_ifif",
+                                    "packet_pipe"])
 def test_variant_engines_trace_host_packed_tables(engine):
-    """packet_ww and packet_ifif trace host-packed tables; builder="lbvh"
-    with them takes the flat route (build_lbvh_flat, then the host pack),
-    as in the reference."""
+    """packet_ww, packet_ifif and packet_pipe trace host-packed tables;
+    builder="lbvh" with them takes the flat route (build_lbvh_flat, then the
+    host pack), as in the reference."""
     soup = make_random_soup(n_tris=300, seed=2)
     r = Renderer(soup, BuildConfig(builder="lbvh", max_leaf_size=8),
                  RenderConfig(engine=engine), device="cpu")
@@ -89,6 +91,19 @@ def test_variant_engines_trace_host_packed_tables(engine):
     with pytest.raises(ValueError, match="unknown engine"):
         Renderer(soup, BuildConfig(builder="median"),
                  RenderConfig(engine="no_such_engine"), device="cpu")
+
+
+def test_wide_engine_packs_wide_tables():
+    """packet_wide packs the flat tree into the 8-ary tables at 4
+    triangles a row (the reference renderer's pack_wide_bvh call);
+    builder="lbvh" with it takes the flat route."""
+    soup = make_random_soup(n_tris=300, seed=2)
+    r = Renderer(soup, BuildConfig(builder="lbvh", max_leaf_size=8),
+                 RenderConfig(engine="packet_wide"), device="cpu")
+    assert r.engine == "packet_wide" and r.flat is not None
+    assert isinstance(r.tables, WideTables)
+    assert r.tables.tris_per_row == r.packed.tris_per_row == 4
+    np.testing.assert_array_equal(r.tables.nodes_w.numpy(), r.packed.nodes_w)
 
 
 def test_renderer_needs_an_explicit_device(soup_small):
@@ -152,7 +167,7 @@ def test_trace_batched_retries_only_on_oom():
     (dict(engine="stack2"), "not ported"),
     (dict(engine="binraster"), "v1 screen-space engine"),
     (dict(seed_primary="on"), "seeded primary"),
-    (dict(engine="packet_pipe"), "packet family"),
+    (dict(engine="packet_bfs"), "packet family"),
     (dict(mode="diffuse", seed_secondary="on"), "item 15"),
 ])
 def test_unported_paths_raise(soup_small, kw, match):
