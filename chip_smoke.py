@@ -12,7 +12,9 @@ screen-space engine, as bench.py's tuned reference does: prep v5 in
 torch, then the CUDA walk or dma kernel (ntrace_tpu_torch/csrc/
 dense_trace.cu); phases 8 and 9 trace the secondary modes with the packet,
 while-while and speculative while-while kernels, phase 11 every mode with
-the pipelined while-while and the 8-wide packet kernels.
+the pipelined while-while and the 8-wide packet kernels, and phase 12 the
+primary frame with the v1 screen-space engine and the dense engine's
+visit-list kernel.
 
 Phases, each printed as it completes:
   1. versions, card name and power limit (nvidia-smi)
@@ -50,7 +52,9 @@ Phases, each printed as it completes:
      (bounces=2), each pass recorded; any-hit passes tri >= 0 against
      brute_force_anyhit on 256 rays, closest-hit passes against
      trace_cpu_golden on 4,096 (0 tie-aware mismatches) and brute_force_mt
-     on 256 (exact tri); images finite and not black
+     on 256 (exact tri); images finite and not black; diffuse ray 411,517
+     (a hit on the shared edge of two flat leaf boxes) bit-equal to
+     brute_force_mt
   9. the while-while and speculative while-while kernels
      (csrc/packet_ww.cu, csrc/packet_ifif.cu): the phase-3 soup check for
      each; all four modes rendered with engine packet_ww and packet_ifif,
@@ -78,7 +82,19 @@ Phases, each printed as it completes:
      contiguous slice of whole packets sized by its twin's time; times of
      packet, pipe and wide (both exact modes) on the primary, shadow, AO
      and diffuse batches beside one bound per batch over the five twins;
-     the hairball's wide tables refused (2**19 triangle rows)
+     the hairball's wide tables refused (2**19 triangle rows); the count of
+     rays decided by brute force (0 expected: the slab test is
+     conservative)
+ 12. the v1 engine (engine="binraster", csrc/binraster_trace.cu) and the
+     visit-list kernel (dense_kernel="visits", csrc/dense_visits.cu) on
+     phase 4's scene, BVH and camera: render() through each with its
+     launch counts (no packet launch, no -2), the oracles, both frames
+     bit-equal to phase 6's walk frame (hits, t, image); on the frozen
+     full-frame structures the v1 kernel at (ez_chunk 0, unroll 4) and
+     (8, 4) and the visits kernel bit-equal to their plain versions on
+     every ray; times of the kernels, the twins and the frames with and
+     without the prep, beside the bounds (pair tests x MT_OPS; v1's
+     early-z work counted by early_z_rows)
 Then one JSON line of per-kernel results (with each kernel's bound from
 this run's work), the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises and the script
@@ -116,6 +132,7 @@ from ntrace_tpu_torch.ray.pixeltable import pixel_table
 from ntrace_tpu_torch.render.renderer import Renderer, build_accel
 from ntrace_tpu_torch.tables import (WideTables, tables_from_packed,
                                      tables_from_wide)
+from ntrace_tpu_torch.trace import binraster as br
 from ntrace_tpu_torch.trace import binraster_dense as bd
 from ntrace_tpu_torch.trace.packet import trace_packet, trace_packet_ref
 from ntrace_tpu_torch.trace.packet_ifif import (trace_packet_ifif,
@@ -134,6 +151,10 @@ KERNEL_REPLACES = "ntrace_tpu/trace/packet_pallas.py:99"
 DENSE_SOURCE = "ntrace_tpu_torch/csrc/dense_trace.cu"
 DENSE_REPLACES = {"walk": "ntrace_tpu/trace/binraster_dense.py:757",
                   "dma": "ntrace_tpu/trace/binraster_dense.py:1022"}
+V1_SOURCE = "ntrace_tpu_torch/csrc/binraster_trace.cu"
+V1_REPLACES = "ntrace_tpu/trace/binraster.py:472"
+VISITS_SOURCE = "ntrace_tpu_torch/csrc/dense_visits.cu"
+VISITS_REPLACES = "ntrace_tpu/trace/binraster_dense.py:1270"
 SCAN_SOURCE = "ntrace_tpu_torch/csrc/row_scan.cu"
 SCAN_REPLACES = "ntrace_tpu/ops/pscan.py:33"
 # The traversal engines of the secondary slice: kernel wrapper, twin,
@@ -170,6 +191,9 @@ HAIRBALL_TRIS = 2_900_000     # get_scene("hairball") -> 2,900,402 tris
 LBVH_CFG = BuildConfig(builder="lbvh", max_leaf_size=32, sah_tri_cost=0.02)
 WIDTH, HEIGHT = 1024, 768
 GOLDEN_RAYS = 4096
+# The conference diffuse ray whose closest hit lies on a shared edge of two
+# flat leaf boxes (tests/test_torch_crack.py holds the same ray).
+CRACK_RAY = 411_517
 BRUTE_RAYS = 256
 # The bound of a kernel's row: NVIDIA's H100 SXM data sheet, full 700 W
 # power limit: 3.35 TB/s of HBM, 67 TFLOP/s of FP32 outside the tensor
@@ -465,36 +489,50 @@ def profile_once(label, fn, smi, top=8):
     return dev
 
 
-def dense_render(rd, kernel):
-    """The dense main path with `kernel`: render() once, the launch and
-    prep counts set to 0 just before it and read just after."""
-    rd.dense_kernel = kernel
+# The screen-space kernels by the name a render uses: the dense engine's
+# dense_kernel values and the v1 engine.
+SCREEN_KERNELS = {"walk": bd.trace_dense_rows, "dma": bd.trace_dense_rows_dma,
+                  "visits": bd.trace_dense_visits,
+                  "binraster": br.trace_binraster_rows}
+
+
+def screen_render(rv, key, tag):
+    """A screen-space main path: render() once through kernel `key` ("walk",
+    "dma" or "visits" on a binraster_dense renderer, "binraster" on a v1
+    renderer), the launch and prep counts set to 0 just before it and read
+    just after. No packet launch, no other screen-space kernel, no -2
+    (main() checks that the kernel itself launched: on the CPU the plain
+    version runs)."""
+    if key in bd.KERNELS:
+        rv.dense_kernel = key
+    for fn in SCREEN_KERNELS.values():
+        fn.launches = 0
     trace_packet.launches = 0
-    bd.trace_dense_rows.launches = 0
-    bd.trace_dense_rows_dma.launches = 0
     bd.binraster_prep_dense5.calls = 0
-    res = rd.render(default_camera("conference"))
-    counts = {"walk": bd.trace_dense_rows.launches,
-              "dma": bd.trace_dense_rows_dma.launches,
-              "packet": trace_packet.launches,
-              "prep": bd.binraster_prep_dense5.calls}
-    if rd._br is None:
-        raise AssertionError(f"render ({kernel}) did not arm the dense "
-                             "engine")
-    if counts["prep"] < 1 or counts["packet"]:
-        raise AssertionError(f"render ({kernel}) ran no prep, or traced "
-                             f"with the packet kernel: {counts}")
+    res = rv.render(default_camera("conference"))
+    counts = {k: fn.launches for k, fn in SCREEN_KERNELS.items()}
+    counts.update(packet=trace_packet.launches,
+                  prep_v5=bd.binraster_prep_dense5.calls)
+    if rv._br is None:
+        raise AssertionError(f"{tag} render ({key}) did not arm the "
+                             "screen-space engine")
+    others = sum(v for k, v in counts.items()
+                 if k not in (key, "prep_v5"))
+    if others or (counts["prep_v5"] >= 1) != (key != "binraster"):
+        raise AssertionError(f"{tag} render ({key}): launches {counts}")
     img = res.image
-    if img.shape != (rd.cfg.height, rd.cfg.width, 3) \
+    if img.shape != (rv.cfg.height, rv.cfg.width, 3) \
             or not np.isfinite(img).all() or not img.max() > 0:
-        raise AssertionError(f"render ({kernel}): bad or black image")
+        raise AssertionError(f"{tag} render ({key}): bad or black image")
     if (res.hit_tri == -2).any():
-        raise AssertionError(f"render ({kernel}): -2 poison, the prep's "
+        raise AssertionError(f"{tag} render ({key}): -2 poison, the prep's "
                              "static sizes did not hold")
-    log(f"[6] render ({kernel}): counts {json.dumps(counts)}, image mean "
-        f"{img.mean():.4f}, hit rate {(res.hit_tri >= 0).mean():.4f}, "
-        "stages " + json.dumps({k: round(v, 3) for k, v in res.stats.items()}))
-    return res, counts[kernel]
+    log(f"{tag} render ({key}): counts "
+        + json.dumps({k: v for k, v in counts.items() if v})
+        + f", image mean {img.mean():.4f}, hit rate "
+        f"{(res.hit_tri >= 0).mean():.4f}, stages "
+        + json.dumps({k: round(v, 3) for k, v in res.stats.items()}))
+    return res, counts[key]
 
 
 def phase_dense(r, batch):
@@ -502,7 +540,8 @@ def phase_dense(r, batch):
     phase 4's scene, BVH and camera; both kernels against the twin on the
     frozen full-frame structure; the oracles; dense against packet.
     Returns the dense renderer, its camera, the frozen kernel operands and
-    keywords, and launches and max abs errors by kernel."""
+    keywords, launches and max abs errors by kernel, the kernels' bound and
+    the walk frame."""
     W, H = r.cfg.width, r.cfg.height
     cfg = RenderConfig(width=W, height=H, mode="primary",
                        engine="binraster_dense")
@@ -511,8 +550,8 @@ def phase_dense(r, batch):
     ca = raygen.camera_arrays(camera, W, H, r.device)
     if not rd.prepare_primary(ca, W, H):
         raise AssertionError("prepare_primary declined the conference frame")
-    res, walk_launches = dense_render(rd, "walk")
-    res_dma, dma_launches = dense_render(rd, "dma")
+    res, walk_launches = screen_render(rd, "walk", "[6]")
+    res_dma, dma_launches = screen_render(rd, "dma", "[6]")
     if not (np.array_equal(res.hit_tri, res_dma.hit_tri)
             and np.array_equal(res.image, res_dma.image)):
         raise AssertionError("dense render: walk and dma frames differ")
@@ -575,7 +614,7 @@ def phase_dense(r, batch):
     log(f"[6] dense kernel work: {pairs} ray-triangle pair tests, "
         f"{pairs * MT_OPS:.4g} FP32 operations; bound {bnd[0]:.4f} ms by "
         f"{bnd[1]}")
-    return rd, ca, ops, kw, launches, errs, bnd
+    return rd, ca, ops, kw, launches, errs, bnd, res
 
 
 def phase_dense_timing(rd, ca, batch, ops, kw, smi):
@@ -981,11 +1020,28 @@ def phase_secondary(r, smi):
         for name, (rays, any_hit, hits) in list(passes.items())[1:]:
             check_pass(f"[8] {mode} pass {name}", r.scene, r.flat, rays,
                        any_hit, hits)
+        if mode == "diffuse":
+            check_crack_ray(r.scene, *passes["diffuse"])
         out[mode] = (res, passes)
     for mode in ("ao", "diffuse"):
         profile_once(f"[8] profile of one warm render({mode})",
                      lambda: r.render(camera, mode), smi, top=10)
     return out
+
+
+def check_crack_ray(scene, rays, any_hit, hits, i=CRACK_RAY):
+    """Phase 8: diffuse ray 411,517 (a hit on the shared edge of two flat
+    leaf boxes) gives brute_force_mt's tri and t, bit for bit. Skipped on a
+    batch too small to hold it (a rehearsal on the CPU)."""
+    if any_hit or rays[0].shape[0] <= i:
+        return
+    bf = brute_force_mt(scene, *(a[i:i + 1].cpu().numpy() for a in rays))
+    tri, t = int(hits[0][i]), hits[1][i:i + 1].cpu().numpy()
+    if tri != int(bf.tri[0]) or t.view(np.int32)[0] != bf.t.view(np.int32)[0]:
+        raise AssertionError(f"[8] diffuse ray {i}: tri {tri} t {t[0]}, "
+                             f"brute_force_mt tri {bf.tri[0]} t {bf.t[0]}")
+    log(f"[8] diffuse ray {i} (a shared edge of two flat leaf boxes): tri "
+        f"{tri}, t {t[0]!r}, bit-equal to brute_force_mt")
 
 
 def same_rays(a, b) -> bool:
@@ -1460,6 +1516,193 @@ def phase_hairball_wide_refused(hair, device):
     raise AssertionError("the hairball's wide tables were not refused")
 
 
+# -- phase 12: the rest of the screen-space family ---------------------------
+
+
+def early_z_rows(rows, r0, r1, dirs, scalars, g1, nb, chunk):
+    """The (bin, row) visits the v1 kernel makes with early-z every `chunk`
+    rows, on these inputs: the global prefix, then each bin's range, in
+    chunks, a bin stopping when the next row's zmin exceeds the largest hit
+    t of its rays. Simulated in lockstep over the bins with the plain
+    version's fold (binraster.fold_visits)."""
+    dev = rows.device
+    tris = rows[:, :br.TPB * 10].reshape(-1, br.TPB, 10)
+    zl = rows[:, br.ZLANE]
+    rpb = br.TILE * br.TILE
+    t = torch.full((nb * rpb,), float(scalars[4]), device=dev)
+    tid = torch.full((nb * rpb,), -1, dtype=torch.int32, device=dev)
+    g = 0 if g1 is None else int(g1[0])
+    zero = torch.zeros(nb, dtype=torch.int64, device=dev)
+    visited = 0
+    for w0, w1 in ((zero, zero + g), (r0.long(), r1.long())):
+        pos, live = w0.clone(), w0 < w1
+        while bool(live.any()):
+            b = torch.nonzero(live).squeeze(1)
+            cnt = (w1[b] - pos[b]).clamp(max=chunk)
+            vbin = torch.repeat_interleave(b, cnt)
+            first = torch.cumsum(cnt, 0) - cnt
+            vrow = (torch.repeat_interleave(pos[b] - first, cnt)
+                    + torch.arange(vbin.numel(), device=dev))
+            visited += vbin.numel()
+            tri_c, t_c, _, _ = br.fold_visits(tris, vbin, vrow, dirs,
+                                              scalars, nb, rpb)
+            better = (t_c < t) | ((t_c == t) & (tri_c >= 0) & (tri_c < tid))
+            t, tid = torch.where(better, t_c, t), torch.where(better, tri_c,
+                                                              tid)
+            pos[b] += cnt
+            more = pos[b] < w1[b]
+            znext = zl[pos[b].clamp(max=rows.shape[0] - 1)]
+            mt = t.view(nb, rpb).amax(dim=1)[b]
+            live[b] = more & (znext <= mt)
+    return visited
+
+
+def phase_screen(r, rd, batch, walk_res, ops, kw, dense_bnd, smi):
+    """Phase 12: the v1 engine (engine="binraster", csrc/binraster_trace.cu)
+    and the dense engine's visit-list kernel (dense_kernel="visits",
+    csrc/dense_visits.cu) on phase 4's scene, BVH and camera: each main
+    path rendered once with its launch counts (no packet launch, no -2),
+    both frames against the oracles and bit-equal to phase 6's walk frame
+    (hits, t and image); on the frozen full-frame structures the v1 kernel
+    at (ez_chunk 0, unroll 4) and (8, 4) and the visits kernel bit-equal to
+    their plain versions on every ray; times and bounds. Returns the
+    kernels line's rows of both kernels."""
+    W, H = r.cfg.width, r.cfg.height
+    R = batch.num_rays
+    camera = default_camera("conference")
+    ca = raygen.camera_arrays(camera, W, H, r.device)
+    rv = Renderer(r.scene, BuildConfig(), RenderConfig(
+        width=W, height=H, mode="primary", engine="binraster"),
+        flat=r.flat, device=r.device)
+    if not (rv.prepare_primary(ca, W, H) and rd.prepare_primary(ca, W, H)):
+        raise AssertionError("prepare_primary declined the conference frame")
+    frames = {"binraster": screen_render(rv, "binraster", "[12]"),
+              "visits": screen_render(rd, "visits", "[12]")}
+    order, _ = pixel_table(W, H)
+    for name, (res, _) in frames.items():
+        check_oracles(f"[12] {name}", r.scene, r.flat, res, batch, order)
+        if not (np.array_equal(res.hit_tri, walk_res.hit_tri)
+                and np.array_equal(res.hit_t.view(np.int32),
+                                   walk_res.hit_t.view(np.int32))
+                and np.array_equal(res.image, walk_res.image)):
+            raise AssertionError(f"[12] {name}: the frame differs from "
+                                 "phase 6's walk frame")
+    log("[12] binraster and visits frames: hit ids, t and image bit-equal "
+        "to phase 6's walk frame")
+
+    rv.freeze_primary_structure(ca)
+    c = rv._br
+    rows, r0, r1, g1, ok = c["frozen"]
+    if not bool(ok):
+        raise AssertionError("fast prep: ok is False on the conference frame")
+    nb = c["nb"]
+    dirs, scalars = br.dense_rays(batch.dirn, ca["pos"], batch.tmin[0],
+                                  batch.tmax[0], nb, br.RAY_ROWS)
+    v1_ops = (rows, r0, r1, dirs, scalars, g1)
+    twin = br.trace_binraster_rows_ref(*v1_ops, n_bins=nb)
+    runs = {ez: br.trace_binraster_rows(*v1_ops, n_bins=nb, unroll=4,
+                                        ez_chunk=ez) for ez in (0, 8)}
+    drows, dr0, dr1, ddirs, dscalars, dg1 = ops
+    vt, vb = bd.build_visit_list(dr0, dr1, dg1, v_cap=rd._br["v_cap"],
+                                 nb=kw["n_bins"])
+    vis_args = (drows, vt, vb, ddirs, dscalars)
+    vis_twin = bd.trace_dense_visits_ref(*vis_args, **kw)
+    vis = bd.trace_dense_visits(*vis_args, **kw)
+    torch.cuda.synchronize()   # a fault in a kernel surfaces here
+    for ez, out in runs.items():
+        compare(out, twin, f"[12] v1 kernel ez_chunk={ez} unroll=4 vs twin")
+    compare(vis, vis_twin, "[12] visits kernel vs twin")
+    compare(vis, bd.trace_dense_rows(*ops, ez_chunk=0, **kw),
+            "[12] visits kernel vs walk kernel")
+    g = 0 if g1 is None else int(g1[0])
+    per_bin = (r1 - r0).clamp_min(0) + g
+    row_visits = int(per_bin.sum())
+    ez_visits = early_z_rows(*v1_ops, nb, 8)
+    log(f"[12] kernels: v1 (ez_chunk 0 and 8, unroll 4) bit-equal to "
+        f"trace_binraster_rows_ref and visits bit-equal to "
+        f"trace_dense_visits_ref and to the walk kernel, on all {R} rays; "
+        f"v1 structure: p_max {c['p_max']}, g_max {c['g_max']}, g2_max "
+        f"{c['g2_max']}, {rows.shape[0]} rows ({rows.numel() * 4 / 1e6:.1f}"
+        f" MB), {g} global rows, {nb} bins, {row_visits} (bin, row) visits "
+        f"(per bin: mean {row_visits / nb:.1f}, max {int(per_bin.max())}), "
+        f"{ez_visits} with early-z 8; visit list {vt.numel()} entries")
+    # Bounds: the pair tests each walk needs (MT_OPS each), or the bytes of
+    # its inputs read once and the hits written once.
+    out_bytes = 16 * R
+    b0 = bound(nbytes(*v1_ops) + out_bytes,
+               row_visits * 1024 * br.TPB * MT_OPS)
+    b8 = bound(ez_visits * 512 + nbytes(dirs, scalars, r0, r1) + out_bytes,
+               ez_visits * 1024 * br.TPB * MT_OPS)
+    log(f"[12] v1 work: {row_visits * 1024 * br.TPB} pair tests without "
+        f"early-z (bound {b0[0]:.4f} ms by {b0[1]}), "
+        f"{ez_visits * 1024 * br.TPB} with early-z 8 (bound {b8[0]:.4f} ms "
+        f"by {b8[1]}); visits: the walk's bound {dense_bnd[0]:.4f} ms")
+
+    def med(name, fn, iters=10, warmup=2):
+        times = cuda_ms(fn, warmup=warmup, iters=iters)
+        ms = statistics.median(times)
+        log(f"[12] {name}: median {ms:.4f} ms of {iters} (min "
+            f"{min(times):.4f}, max {max(times):.4f}) on {smi}")
+        return ms
+
+    rays = (batch.orig, batch.dirn, batch.tmin, batch.tmax)
+    ms = {
+        "v1_ez0": med("trace_binraster_rows (ez_chunk 0, unroll 4) frozen "
+                      "frame", lambda: br.trace_binraster_rows(
+                          *v1_ops, n_bins=nb, unroll=4, ez_chunk=0)),
+        "v1_ez8": med("trace_binraster_rows (ez_chunk 8, unroll 4) frozen "
+                      "frame", lambda: br.trace_binraster_rows(
+                          *v1_ops, n_bins=nb, unroll=4, ez_chunk=8)),
+        "v1_twin": med("trace_binraster_rows_ref (twin) frozen frame",
+                       lambda: br.trace_binraster_rows_ref(*v1_ops,
+                                                           n_bins=nb),
+                       iters=3, warmup=0),
+        "visits": med("trace_dense_visits frozen frame",
+                      lambda: bd.trace_dense_visits(*vis_args, **kw)),
+        "visits_twin": med("trace_dense_visits_ref (twin) frozen frame",
+                           lambda: bd.trace_dense_visits_ref(*vis_args,
+                                                             **kw),
+                           iters=3, warmup=0),
+        "v1_frozen": med("v1 frame, structure frozen: trace_primary",
+                         lambda: rv.trace_primary(*rays, cam=ca,
+                                                  canonical=True)),
+    }
+    rd.dense_kernel = "visits"
+    rd.freeze_primary_structure(ca)
+    ms["visits_frozen"] = med("visits frame, structure frozen: "
+                              "trace_primary", lambda: rd.trace_primary(
+                                  *rays, cam=ca, canonical=True))
+    for eng in (rv, rd):
+        if not eng.prepare_primary(ca, W, H):
+            raise AssertionError("prepare_primary declined the frame")
+    ms["v1_prep"] = med("v1 frame with the prep: trace_primary",
+                        lambda: rv.trace_primary(*rays, cam=ca,
+                                                 canonical=True))
+    ms["visits_prep"] = med("visits frame with the prep: trace_primary",
+                            lambda: rd.trace_primary(*rays, cam=ca,
+                                                     canonical=True))
+    rd.dense_kernel = "walk"
+    log(f"[12] v1 kernel {ms['v1_ez8']:.4f} ms at early-z 8 = "
+        f"{ms['v1_ez8'] / b8[0]:.1f}x its bound, {ms['v1_ez0']:.4f} ms "
+        f"without = {ms['v1_ez0'] / b0[0]:.1f}x; visits kernel "
+        f"{ms['visits']:.4f} ms = {ms['visits'] / dense_bnd[0]:.1f}x the "
+        f"walk's bound; frames {R / ms['v1_frozen'] / 1e3:.2f} (v1) and "
+        f"{R / ms['visits_frozen'] / 1e3:.2f} (visits) Mrays/s frozen, "
+        f"{R / ms['v1_prep'] / 1e3:.2f} and "
+        f"{R / ms['visits_prep'] / 1e3:.2f} with the prep; on {smi}")
+    torch.cuda.synchronize()
+    return [
+        {"name": "binraster_v1", "route": "cuda", "source": V1_SOURCE,
+         "replaces": V1_REPLACES, "launches": frames["binraster"][1],
+         "max_abs_err": 0.0, "ms": ms["v1_ez8"], "plain_ms": ms["v1_twin"],
+         "bound_ms": b8[0], "bound_by": b8[1], "library_ms": None},
+        {"name": "dense_visits", "route": "cuda", "source": VISITS_SOURCE,
+         "replaces": VISITS_REPLACES, "launches": frames["visits"][1],
+         "max_abs_err": 0.0, "ms": ms["visits"],
+         "plain_ms": ms["visits_twin"], "bound_ms": dense_bnd[0],
+         "bound_by": dense_bnd[1], "library_ms": None}]
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -1479,13 +1722,12 @@ def main():
     phase_soup(device)
     r, batch, launches = phase_main_path(device)
     ms, plain_ms, err = phase_timing(r, batch, smi)
-    rd, ca, ops, kw, dense_launches, dense_err, dense_bnd = phase_dense(
-        r, batch)
+    rd, ca, ops, kw, dense_launches, dense_err, dense_bnd, walk_res = \
+        phase_dense(r, batch)
     if min(dense_launches.values()) < 1:
         raise AssertionError(f"a dense main path launched no kernel: "
                              f"{dense_launches}")
     dense_ms = phase_dense_timing(rd, ca, batch, ops, kw, smi)
-    del rd, ops
     scan_err = phase_scan_kernel(device)
     conf_dev, hair_dev, hair = phase_lbvh_builds(device, r.scene)
     rl, lbvh_counts = phase_lbvh_frame(r, batch)
@@ -1504,7 +1746,9 @@ def main():
 
     phase_soup_variants(device, ("packet_pipe",), "[11]")
     phase_soup_wide(device)
-    new_launches, new_r, _ = phase_new_renders(r, secondary)
+    new_launches, new_r, decided = phase_new_renders(r, secondary)
+    log(f"[11] rays decided by brute_force_mt over every packet_wide pass: "
+        f"{decided}")
     wt = new_r["packet_wide"].tables
     pipe = {"packet_pipe": NEW_ENGINES["packet_pipe"]}
     pipe_works = phase_variant_twins(r.tables, secondary, pipe, "[11]")
@@ -1517,6 +1761,12 @@ def main():
         secondary, entries, full_counts, smi)
     del secondary, new_r
     phase_hairball_wide_refused(hair, device)
+    screen_rows = phase_screen(r, rd, batch, walk_res, ops, kw, dense_bnd,
+                               smi)
+    del rd, ops
+    if min(row["launches"] for row in screen_rows) < 1:
+        raise AssertionError("a screen-space main path launched no kernel: "
+                             + json.dumps(screen_rows))
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     kernels = [{
@@ -1547,8 +1797,9 @@ def main():
             "replaces": ALL_ENGINES[name][3],
             "launches": variant_launches[name],
             "max_abs_err": 0.0, "ms": row["ms"], "plain_ms": row["plain_ms"],
-                "bound_ms": primary_bnd[0], "bound_by": primary_bnd[1],
+            "bound_ms": primary_bnd[0], "bound_by": primary_bnd[1],
             "library_ms": None})
+    kernels += screen_rows
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -43,20 +43,18 @@
 // bound of any hit t on that tile, so the skipped tiles cannot change any
 // ray's result: early-z on or off gives bit-identical output.
 //
-// Numerics: the op order is binraster_dense.py:822-849 (the same as
-// packet_pallas.py's MT). Build with --fmad=false; 1.0f / x is IEEE. The
-// accumulator starts at (tmax, -1, 0, 0) and takes a candidate when
-//   bt < t || (bt == t && bid < id),  bt = ok ? t : INF, bid = ok ? id : MAX
-// so the result, the lowest id among the closest hits, does not depend on
-// the visit order. Results go out in ray slot order.
+// Numerics, and the Moller-Trumbore test itself: screen_common.cuh.
+// Results go out in ray slot order.
 
-#include <cfloat>
-#include <climits>
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "screen_common.cuh"
+
 namespace {
+
+using namespace ntrace_screen;
 
 constexpr int kGpt = 8;                       // sublanes per tile
 constexpr int kGroups = 11;                   // triangle groups per sublane
@@ -64,18 +62,7 @@ constexpr int kCpl = 11;                      // lanes per group
 constexpr int kLanes = 128;
 constexpr int kTileFloats = kGpt * kLanes;    // 1024 floats = 4 KB
 constexpr int kBlock = 256;                   // threads; one float4 each
-constexpr float kInf = 3.0e38f;               // binraster.py INF
 static_assert(kTileFloats == 4 * kBlock, "one float4 of a tile per thread");
-
-struct Ray {
-    float ox, oy, oz, dx, dy, dz, tmin;
-};
-
-struct Hit {
-    float t;
-    int id;
-    float u, v;
-};
 
 // Moller-Trumbore of one ray against the 88 triangles of a tile in shared
 // memory, folded into the running (t, id) minimum.
@@ -85,52 +72,9 @@ __device__ __forceinline__ void test_tile(const float* tile, const Ray& r,
     for (int s = 0; s < kGpt; ++s) {
 #pragma unroll
         for (int g = 0; g < kGroups; ++g) {
-            const float* c = tile + s * kLanes + g * kCpl;
-            const float v0x = c[0], v0y = c[1], v0z = c[2];
-            const float e1x = c[3], e1y = c[4], e1z = c[5];
-            const float e2x = c[6], e2y = c[7], e2z = c[8];
-            const int tid = static_cast<int>(c[9]);
-            const float tvx = r.ox - v0x, tvy = r.oy - v0y, tvz = r.oz - v0z;
-            const float qx = tvy * e1z - tvz * e1y;
-            const float qy = tvz * e1x - tvx * e1z;
-            const float qz = tvx * e1y - tvy * e1x;
-            const float c0 = e2x * qx + e2y * qy + e2z * qz;
-            const float px = r.dy * e2z - r.dz * e2y;
-            const float py = r.dz * e2x - r.dx * e2z;
-            const float pz = r.dx * e2y - r.dy * e2x;
-            const float det = e1x * px + e1y * py + e1z * pz;
-            const float inv = 1.0f / (det == 0.0f ? 1.0f : det);
-            const float u = (tvx * px + tvy * py + tvz * pz) * inv;
-            const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv;
-            const float t = c0 * inv;
-            const bool ok = det != 0.0f && tid >= 0 && u >= 0.0f
-                            && v >= 0.0f && u + v <= 1.0f && t > r.tmin;
-            const float bt = ok ? t : kInf;
-            const int bid = ok ? tid : INT_MAX;
-            if (bt < h.t || (bt == h.t && bid < h.id)) {
-                h.t = bt;
-                h.id = bid;
-                h.u = u;
-                h.v = v;
-            }
+            mt_fold(tile + s * kLanes + g * kCpl, r, h);
         }
     }
-}
-
-// Largest x over the block; every thread gets it. `red` holds one float
-// per warp.
-__device__ __forceinline__ float block_max(float x, float* red) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-    }
-    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
-    __syncthreads();
-    float m = red[0];
-#pragma unroll
-    for (int w = 1; w < kBlock / 32; ++w) m = fmaxf(m, red[w]);
-    __syncthreads();   // red is free again
-    return m;
 }
 
 __device__ __forceinline__ const float4* tile_src(const float* rows, int w) {
@@ -147,7 +91,7 @@ struct BinRays {
     size_t slot;
 };
 
-__device__ __forceinline__ BinRays load_ray(const float* dirs,
+__device__ __forceinline__ BinRays bin_rays(const float* dirs,
                                             const float* scalars,
                                             int rays_per_bin) {
     BinRays br;
@@ -155,13 +99,7 @@ __device__ __forceinline__ BinRays load_ray(const float* dirs,
     const size_t n_rays = static_cast<size_t>(gridDim.x) * rays_per_bin;
     br.active = i < rays_per_bin;
     br.slot = static_cast<size_t>(blockIdx.x) * rays_per_bin + i;
-    br.ray.ox = scalars[0];
-    br.ray.oy = scalars[1];
-    br.ray.oz = scalars[2];
-    br.ray.tmin = scalars[3];
-    br.ray.dx = br.active ? dirs[br.slot] : 0.0f;
-    br.ray.dy = br.active ? dirs[n_rays + br.slot] : 0.0f;
-    br.ray.dz = br.active ? dirs[2 * n_rays + br.slot] : 0.0f;
+    br.ray = load_ray(dirs, scalars, br.active ? br.slot : 0, n_rays);
     br.hit = Hit{scalars[4], -1, 0.0f, 0.0f};
     return br;
 }
@@ -196,7 +134,8 @@ __device__ void walk(const float* rows, int w0, int w1, int n_tiles,
             const float znext = __ldg(
                 rows + static_cast<size_t>(min(w, n_tiles - 1)) * kTileFloats
                 + 10);
-            const float mt = block_max(br.active ? br.hit.t : -FLT_MAX, red);
+            const float mt = block_max<kBlock>(
+                br.active ? br.hit.t : -FLT_MAX, red);
             if (!(znext <= mt)) return;
         }
     }
@@ -211,7 +150,7 @@ __global__ void __launch_bounds__(kBlock) dense_walk_kernel(
     float* __restrict__ out_v) {
     __shared__ float4 tile[kBlock];
     __shared__ float red[kBlock / 32];
-    BinRays br = load_ray(dirs, scalars, rays_per_bin);
+    BinRays br = bin_rays(dirs, scalars, rays_per_bin);
     const int b = blockIdx.x;
     if (g_r1 != nullptr) {
         walk(rows, 0, g_r1[0], n_tiles, ez_chunk, tile, red, br);
@@ -269,7 +208,7 @@ __global__ void __launch_bounds__(kBlock) dense_dma_kernel(
     float* __restrict__ out_t, float* __restrict__ out_u,
     float* __restrict__ out_v) {
     __shared__ float4 buf[2][kBlock];
-    BinRays br = load_ray(dirs, scalars, rays_per_bin);
+    BinRays br = bin_rays(dirs, scalars, rays_per_bin);
     const int b = blockIdx.x;
     if (g_r1 != nullptr) walk_dma(rows, 0, g_r1[0], n_tiles, buf, br);
     walk_dma(rows, row0[b], row1[b], n_tiles, buf, br);

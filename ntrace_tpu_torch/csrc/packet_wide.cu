@@ -86,6 +86,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 struct Frustum {
     float n[4][3];       // plane normals
     float beta[4];       // origin-box bias of each plane
+    float babs[4];       // the sum of |terms| of beta (the plane slack)
     bool pass[4];        // a plane with a non-finite component culls nothing
     float iAl, iAh, oAl, oAh, tn_lo;
     int axis;            // dominant axis A
@@ -143,6 +144,7 @@ __device__ Frustum make_frustum(const Ray& ray, bool present) {
                 bb[a] = f.n[p][a] > 0.0f ? f.n[p][a] * olo[a]
                                          : f.n[p][a] * ohi[a];
             f.beta[p] = (bb[0] + bb[1]) + bb[2];
+            f.babs[p] = (fabsf(bb[0]) + fabsf(bb[1])) + fabsf(bb[2]);
         }
     }
     f.iAl = 1.0f / (f.degen ? 1.0f : dAh);
@@ -165,7 +167,12 @@ __device__ __forceinline__ bool frustum_hit(const Frustum& f,
             for (int a = 0; a < 3; ++a)
                 x[a] = f.n[p][a] * (f.n[p][a] > 0.0f ? hi[a] : lo[a]);
             const float d2 = (x[0] + x[1]) + x[2];
-            inside = inside && (f.pass[p] || d2 - f.beta[p] >= 0.0f);
+            // The slab test's slack on the plane side too, relative to
+            // the magnitude of the sums: a plane through a packet's
+            // outermost ray rounds it, and a hit on a box edge, outside.
+            const float sx = (fabsf(x[0]) + fabsf(x[1])) + fabsf(x[2]);
+            inside = inside && (f.pass[p] || d2 - f.beta[p]
+                                >= -(kSlabEps * (sx + f.babs[p])));
         }
     }
     float ent = -kBig, ext = kBig;
@@ -182,7 +189,11 @@ __device__ __forceinline__ bool frustum_hit(const Frustum& f,
         ent = fmaxf(fminf(tn[0], tn[1]), -kBig);
         ext = fminf(fmaxf(tx[0], tx[1]), kBig);
     }
-    return inside && fmaxf(ent, f.tn_lo) <= fminf(ext, ptmax);
+    // The interval test takes the slab test's slack (trace_common.cuh:slab
+    // says why): a box flat on the dominant axis cracks a shared edge
+    // otherwise.
+    return inside
+           && fmaxf(ent, f.tn_lo) * kSlabLo <= fminf(ext, ptmax) * kSlabHi;
 }
 
 template <bool kAnyHit, bool kExact>

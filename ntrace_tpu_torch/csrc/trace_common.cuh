@@ -91,8 +91,34 @@ __device__ __forceinline__ void load_node(const float* __restrict__ nodes,
     }
 }
 
-// packet_pallas.py:_slab_child. fminf/fmaxf drop NaN like jnp.fmin/fmax;
-// entry is clamped to tmin, exit to the running hit distance.
+// packet_pallas.py:_slab_child, made conservative. fminf/fmaxf drop NaN
+// like jnp.fmin/fmax; entry is clamped to tmin, exit to the running hit
+// distance, and the box passes when
+//   t0 * kSlabLo <= t1 * kSlabHi,   kSlabLo/Hi = 1 -/+ 2^-20.
+// Why the slack (Ize, "Robust BVH Ray Traversal", JCGT 2013): each slab
+// distance (b - o) * inv carries three roundings (the subtraction, the
+// reciprocal, the product), a relative error of at most gamma(3) = 3u/(1-3u),
+// u = 2^-24, so an exact interval that is not empty can round to t0 > t1
+// by 2 gamma(3) (Ize widens t1 by 1 + 2 gamma(3)). Moller-Trumbore rounds
+// too: it accepts a point on a shared edge that lies outside its own
+// triangle, and so outside that triangle's leaf box, by a few u of
+// |o - v0| and of the edge lengths (its differences and edges carry that
+// error), which is a few u of t relative when the hit is no nearer than
+// an edge's length and the ray does not graze the triangle. A box that is
+// flat in one axis (an axis-aligned quad split in two) then rounds the hit
+// outside both boxes of the edge, and the tree loses the hit. The same
+// few u decide ties: t1 is clamped to the running hit, whose t Moller-
+// Trumbore computed, and a box whose t0 rounds just above it would lose
+// the lower id at the same t. 2^-20 = 16u covers 2 gamma(3) and leaves
+// about 10u for those. Both constants and the products are exact or
+// correctly rounded in float, so every kernel and its torch twin
+// (trace/packet_common.py:slab_child) agree bit for bit. Needs tmin >= 0
+// (t0 >= 0: a box behind the origin, t1 < 0, still fails). A box that
+// passes only through the slack costs one more node visit, never a hit.
+constexpr float kSlabEps = 0x1p-20f;
+constexpr float kSlabLo = 1.0f - kSlabEps;
+constexpr float kSlabHi = 1.0f + kSlabEps;
+
 __device__ __forceinline__ bool slab(const float* b, const Ray& r,
                                      float tmax, float* begin) {
     const float tlo_x = (b[0] - r.ox) * r.ix;
@@ -106,7 +132,7 @@ __device__ __forceinline__ bool slab(const float* b, const Ray& r,
     const float t1 = fminf(fminf(fmaxf(tlo_x, thi_x), fmaxf(tlo_y, thi_y)),
                            fminf(fmaxf(tlo_z, thi_z), tmax));
     *begin = t0;
-    return t0 <= t1;
+    return t0 * kSlabLo <= t1 * kSlabHi;
 }
 
 // Moller-Trumbore of the ray against the `tpr` slots of triangle row

@@ -59,6 +59,14 @@ SIGNATURES = {
         ctypes.c_int,
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     ),
+    "ntrace_dense_visits": (
+        ctypes.c_int,
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    ),
+    "ntrace_binraster_rows": (
+        ctypes.c_int,
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    ),
     "ntrace_row_scan_tile": (ctypes.c_int, []),
     "ntrace_row_scan_i32": (
         ctypes.c_int,

@@ -9,10 +9,11 @@ Counterpart of ntrace_tpu/render/renderer.py: `build_accel` (165-197),
 `_unit_normals` (1212), `gen_secondary` (1221-1254), `render` (1256-1394)
 for the modes primary, shadow, ao, diffuse and path, `_default_light`
 (1396-1402), the plain-tracer branch of `_secondary_tracer` (1448-1492)
-and `_path_trace` (1494-1548); and the dense screen-space primary engine:
-`prepare_primary` (924-930, 966-1027), `_dense_prep`,
-`freeze_primary_structure`, `_trace_binraster_dense` (1029-1109) and
-`_binraster_contract_ok` (1190-1201).
+and `_path_trace` (1494-1548); and the two screen-space primary engines:
+`prepare_primary` (924-1027, the v1 and dense branches), `_dense_prep`,
+`freeze_primary_structure`, `_trace_binraster_dense` (1029-1109),
+`_trace_binraster` (1111-1134), the routing of `trace_primary`
+(1172-1179) and `_binraster_contract_ok` (1190-1201).
 
 Engines. "auto", "wavefront" and "packet" trace through
 `trace/packet.py`; "packet_ww", "packet_ifif" and "packet_pipe" through
@@ -27,12 +28,14 @@ them through `trace/packet_wide.py` with the conservative frustum test
 (exact=False); the reference's TPU knobs (packet rows, interleave, VMEM
 limit, light and stats outputs) have no counterpart.
 "cpu_golden" runs the host golden tracer. engine="binraster_dense" arms
-the dense engine (`trace/binraster_dense.py`) for canonical primary frames
-and keeps the packet kernel for every other ray. The port reads no
-tuned.json (its entries were measured on a TPU): the dense engine's
-settings are the reference renderer's code defaults (the DENSE_*
-constants), "auto" means the packet kernel alone, and seed_secondary and
-stage_secondary "auto" mean off. builder="lbvh" with engine "auto" or
+the dense engine (`trace/binraster_dense.py`, kernel "walk", "dma" or
+"visits") and engine="binraster" the v1 engine (`trace/binraster.py`,
+32-pixel bins) for canonical primary frames; both keep the packet kernel
+for every other ray. The port reads no tuned.json (its entries were
+measured on a TPU): the screen-space engines' settings are the reference
+renderer's code defaults (the DENSE_* and V1_* constants), "auto" means
+the packet kernel alone, and seed_secondary and stage_secondary "auto"
+mean off. builder="lbvh" with engine "auto" or
 "packet" and no `flat` takes the packed-direct path on every device: the
 tables are built on the renderer's device (bvh/lbvh.py:build_lbvh_packed)
 and traced in place, and `self.flat` is None; with packet_ww,
@@ -64,6 +67,7 @@ from ntrace_tpu_torch.ray.pixeltable import pixel_table
 from ntrace_tpu_torch.ray.raybatch import RayBatch, morton_sort_rays, unsort
 from ntrace_tpu_torch.tables import (tables_from_device, tables_from_packed,
                                      tables_from_wide)
+from ntrace_tpu_torch.trace import binraster as br
 from ntrace_tpu_torch.trace import binraster_dense as bd
 from ntrace_tpu_torch.trace.packet import trace_packet
 from ntrace_tpu_torch.trace.packet_ifif import trace_packet_ifif
@@ -87,8 +91,6 @@ UNPORTED_ENGINES = {
     "stack2": "queue 1, item 2: the stack2 engine",
     "bvh8": "queue 1, item 10: other engines",
     "kdtree": "queue 1, item 10: other engines",
-    "binraster": "queue 2: the v1 screen-space engine, binraster_prep_fast "
-                 "and its kernel",
     **{e: "queue 2: the rest of the packet family"
        for e in ("packet_bfs", "packet_dleaf", "packet_bdl")},
 }
@@ -100,10 +102,18 @@ DENSE_TILE = 16              # bin edge in pixels
 DENSE_K_CAP = 64             # a triangle over more bins: the global tier
 DENSE_EZ_CHUNK = 0           # early-z off
 DENSE_MAX_PAIRS = 2_000_000  # pair budget; above it the BVH path serves
-# Scenes above this many triangles never arm the dense engine (the
-# reference's NTRACE_BINRASTER_MAX_TRIS default): its sorts and tables
+# The v1 engine's settings: the reference renderer's code defaults for
+# what it reads from tuned.json (br_k, br_k2, br_unroll, br_ez); its bins
+# are 32 pixels, the kernel's 1,024 rays.
+V1_K_SLOTS = 8               # slots per triangle in the first tier
+V1_K2_SLOTS = 64             # slots per triangle in the mid tier
+V1_UNROLL = 4                # rows staged at once without early-z
+V1_EZ_CHUNK = 8              # early-z after every 8 rows
+# Scenes above this many triangles never arm a screen-space engine (the
+# reference's NTRACE_BINRASTER_MAX_TRIS default): their sorts and tables
 # scale with them.
 DENSE_MAX_TRIS = 3_000_000
+SCREEN_ENGINES = ("binraster", "binraster_dense")
 
 
 @dataclass
@@ -223,8 +233,8 @@ class Renderer:
                  cfg: RenderConfig = RenderConfig(),
                  flat: FlatBVH | None = None, *, device,
                  dense_kernel: str = "walk"):
-        """dense_kernel: "walk" or "dma", the dense engine's kernel (the
-        reference's br2_kernel); both give bit-identical frames."""
+        """dense_kernel: "walk", "dma" or "visits", the dense engine's kernel
+        (the reference's br2_kernel); all give bit-identical frames."""
         self.scene = scene
         self.cfg = cfg
         self.device = torch.device(device)
@@ -238,11 +248,10 @@ class Renderer:
         self.primary_engine = None
         self._br = None                   # armed by prepare_primary()
         engine = cfg.engine
-        if engine == "binraster_dense":
+        if engine in SCREEN_ENGINES:
             if dense_kernel not in bd.KERNELS:
-                raise NotImplementedError(
-                    f"dense kernel {dense_kernel!r} is not ported yet "
-                    "(ROADMAP queue 2, item 12: the visit-list kernel)")
+                raise ValueError(f"dense_kernel must be one of "
+                                 f"{bd.KERNELS}, not {dense_kernel!r}")
             self.primary_engine = engine
             engine = "auto"
         if engine in PACKET_ENGINES:
@@ -323,11 +332,14 @@ class Renderer:
                                          dtype=np.float32)).to(self.device)
 
     def prepare_primary(self, cam: dict, width: int, height: int) -> bool:
-        """Arm the dense engine for (cam, W, H): one count pass picks the
-        static sizes. Returns True when armed; False leaves the frame to
-        the BVH path (no dense engine, a frame that does not tile, or a
+        """Arm the screen-space engine for (cam, W, H): one count pass picks
+        the static sizes. Returns True when armed; False leaves the frame to
+        the BVH path (no screen-space engine, a frame that does not tile, a
+        bin grid too large for the sort key, or, for the dense engine, a
         pair budget the camera would exceed)."""
         self._br = None
+        if self.primary_engine == "binraster":
+            return self._prepare_v1(cam, width, height)
         if self.primary_engine != "binraster_dense":
             return False
         if width % DENSE_TILE or height % DENSE_TILE:
@@ -360,7 +372,46 @@ class Renderer:
             "mcodes": torch.from_numpy(mcodes).to(self.device),
             "cam_pos": cam["pos"].clone(),
         }
+        self._br["v_cap"] = bd.visit_cap(p_max, self._br["nb"],
+                                         self._br["g2_max"])
         return True
+
+    def _prepare_v1(self, cam: dict, width: int, height: int) -> bool:
+        """Arm the v1 engine: 32-pixel bins, the fast prep's static sizes
+        from one count pass (renderer.py:931-964)."""
+        if width % br.TILE or height % br.TILE:
+            return False
+        txn, tyn = width // br.TILE, height // br.TILE
+        try:
+            mcodes = br._bin_mcodes(txn, tyn)
+        except ValueError:
+            return False      # bin grid exceeds the fused key's 10 bits
+        total, n_mid, n_g = (int(x) for x in br.count_pairs_fast(
+            self._br_verts, cam, width=width, height=height, tile=br.TILE,
+            k_slots=V1_K_SLOTS, k2_slots=V1_K2_SLOTS))
+        self._br = {
+            "width": width, "height": height, "nb": txn * tyn,
+            "p_max": br.pick_pmax(total), "g_max": br.pick_gmax(n_mid + n_g),
+            "g2_max": br.pick_gmax(n_g, floor=192),
+            "mcodes": torch.from_numpy(mcodes).to(self.device),
+            "cam_pos": cam["pos"].clone(),
+        }
+        return True
+
+    def _v1_prep(self, cam):
+        """The armed fast prep: (rows, row0, row1, g_r1, ok)."""
+        c = self._br
+        return br.binraster_prep_fast(
+            self._br_verts, cam, c["mcodes"], width=c["width"],
+            height=c["height"], tile=br.TILE, k_slots=V1_K_SLOTS,
+            g_max=c["g_max"], p_max=c["p_max"], k2_slots=V1_K2_SLOTS,
+            g2_max=c["g2_max"])
+
+    def _structure(self, cam):
+        """The armed engine's screen-space structure for `cam`."""
+        if self.primary_engine == "binraster":
+            return self._v1_prep(cam)
+        return self._dense_prep(cam)
 
     def _dense_prep(self, cam):
         """The armed prep v5: (rows, row0, row1, g_r1, ok)."""
@@ -372,12 +423,12 @@ class Renderer:
             z_bits=bd.Z_BITS)
 
     def freeze_primary_structure(self, cam: dict) -> float:
-        """Build the dense engine's screen-space structure once and keep it
-        for later trace_primary calls with this very camera (the analogue
-        of a prebuilt BVH). Needs a prior successful prepare_primary.
-        Returns the build's wall seconds."""
+        """Build the screen-space structure once and keep it for later
+        trace_primary calls with this very camera (the analogue of a
+        prebuilt BVH). Needs a prior successful prepare_primary. Returns
+        the build's wall seconds."""
         t0 = time.perf_counter()
-        out = self._dense_prep(cam)
+        out = self._structure(cam)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self._br["frozen"] = out
@@ -403,7 +454,12 @@ class Renderer:
         dirs, scalars = bd.dense_rays(dirn, cam["pos"], tmin[0], tmax[0],
                                       c["nb"], c["ray_rows"])
         kw = dict(n_bins=c["nb"], ray_rows=c["ray_rows"])
-        if self.dense_kernel == "dma":
+        if self.dense_kernel == "visits":
+            vt, bv = bd.build_visit_list(r0, r1, g1, v_cap=c["v_cap"],
+                                         nb=c["nb"])
+            tri, t, u, v = bd.trace_dense_visits(rows, vt, bv, dirs,
+                                                 scalars, **kw)
+        elif self.dense_kernel == "dma":
             tri, t, u, v = bd.trace_dense_rows_dma(rows, r0, r1, dirs,
                                                    scalars, g1, **kw)
         else:
@@ -413,11 +469,25 @@ class Renderer:
         # A static size that was too small poisons every hit: loud.
         return torch.where(ok, tri, -2), t, u, v
 
+    def _trace_binraster(self, dirn, tmin, tmax, cam):
+        """The v1 engine's frame: the fast prep (or the frozen structure)
+        and the v1 kernel."""
+        c = self._br
+        frozen = self._frozen_structure(cam)
+        rows, r0, r1, g1, ok = (frozen if frozen is not None
+                                else self._v1_prep(cam))
+        dirs, scalars = br.dense_rays(dirn, cam["pos"], tmin[0], tmax[0],
+                                      c["nb"], br.RAY_ROWS)
+        tri, t, u, v = br.trace_binraster_rows(
+            rows, r0, r1, dirs, scalars, g1, n_bins=c["nb"],
+            unroll=V1_UNROLL, ez_chunk=V1_EZ_CHUNK)
+        return torch.where(ok, tri, -2), t, u, v
+
     def trace_primary(self, orig, dirn, tmin, tmax, cam=None,
                       canonical=None):
         """Primary-ray closest-hit trace (the seed_primary="off" path).
 
-        cam: camera_arrays dict; with the dense engine armed, canonical
+        cam: camera_arrays dict; with a screen-space engine armed, canonical
         primary rays (orig == cam pos, uniform tmin == znear, uniform
         tmax, the full W*H frame) go to it, everything else to the BVH
         path. canonical: None checks the contract; True asserts it and
@@ -435,6 +505,8 @@ class Renderer:
                 and dirn.shape[0] == self._br["width"] * self._br["height"]
                 and (canonical is True
                      or self._binraster_contract_ok(orig, tmin, tmax, cam))):
+            if self.primary_engine == "binraster":
+                return self._trace_binraster(dirn, tmin, tmax, cam)
             return self._trace_binraster_dense(dirn, tmin, tmax, cam)
         return _trace_batched(self._tracer, RayBatch(orig, dirn, tmin, tmax),
                               self._cap(), False)

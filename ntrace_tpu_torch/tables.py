@@ -23,13 +23,42 @@ import torch
 from ntrace_tpu_torch.host import NODE_LANES, TRI_LANES, PackedBVH
 
 
+# The packed tables store child links, leaf first rows and triangle ids as
+# floats (host/bvh/packed.py), exact only below 2**24; a limit kept from the
+# reference.
+FLOAT_ID_LIMIT = 2 ** 24
+
+
 @dataclass(frozen=True)
 class PackedTables:
+    """The binary engines' tables on a device. Construction refuses tables
+    whose float-coded integers reach FLOAT_ID_LIMIT (a child link, a leaf's
+    first triangle row, a triangle id, or the node count), with a
+    ValueError that names the limit."""
     nodes8: torch.Tensor   # (NR, 128) float32, contiguous
     tris12: torch.Tensor   # (TR, 128) float32, contiguous
     nodes_per_row: int
     tris_per_row: int
     num_nodes: int
+
+    def __post_init__(self):
+        npr, tpr = self.nodes_per_row, self.tris_per_row
+        rec = self.nodes8[:, :npr * NODE_LANES].reshape(-1, NODE_LANES)
+        enc = rec[:self.num_nodes, 12:14]
+        ids = self.tris12[:, :tpr * TRI_LANES].reshape(-1, tpr, TRI_LANES)
+        # A link is enc >= 0, a leaf's first row -enc - 1: |enc| must stay
+        # below the limit for either to be exact.
+        top = torch.stack([
+            enc.abs().amax() if enc.numel() else enc.new_zeros(()),
+            ids[:, :, 9].amax() if ids.numel() else enc.new_zeros(())])
+        link_or_row, tid = top.tolist()
+        for what, v in (("node count", self.num_nodes),
+                        ("child link or leaf code", link_or_row),
+                        ("triangle id", tid)):
+            if v >= FLOAT_ID_LIMIT:
+                raise ValueError(
+                    f"{what} {v:.0f}: the packed tables code it as a float, "
+                    f"exact only below 2**24 = {FLOAT_ID_LIMIT}")
 
     @property
     def device(self) -> torch.device:

@@ -15,8 +15,11 @@ of tile x tile pixels instead of by BVH traversal:
 3. A kernel tests each bin's rays against the global tier and its tile
    range with Moller-Trumbore and keeps the lexicographic (t, id) minimum:
    `trace_dense_rows` (csrc/dense_trace.cu, dense_walk, with optional
-   early-z) or `trace_dense_rows_dma` (dense_dma: the same walk, tiles
-   double-buffered through cp.async). Both are bit-identical.
+   early-z), `trace_dense_rows_dma` (dense_dma: the same walk, tiles
+   double-buffered through cp.async), or `trace_dense_visits`
+   (csrc/dense_visits.cu: one block per (tile, bin) visit of the list
+   `build_visit_list` makes, each ray's minimum kept by a 64-bit atomic
+   minimum on its (t, id) key). All three are bit-identical.
 
 Bins only cull, so the result is the closest hit with the lowest triangle
 id on a tie, exactly as the BVH engines give it. A prep whose static sizes
@@ -24,9 +27,8 @@ turn out too small reports `ok` False, and `trace_dense_primary` then
 poisons every hit with -2: loud, never silently wrong.
 
 A CUDA tensor launches the kernel; a CPU tensor runs the plain torch
-version `trace_dense_rows_ref`. Only prep v5 is ported: v2, v3 and v4 were
-superseded on the TPU (ROADMAP queue 1, item 7). The visit-list kernel
-(`kernel="visits"`) waits for ROADMAP queue 2, item 12.
+version (`trace_dense_rows_ref`, `trace_dense_visits_ref`). Only prep v5
+is ported: v2, v3 and v4 were superseded on the TPU.
 """
 
 from __future__ import annotations
@@ -37,7 +39,12 @@ import torch
 from ntrace_tpu_torch.device import uses_kernel
 from ntrace_tpu_torch.host import morton2d
 from ntrace_tpu_torch.ops.morton import part1by1
-from ntrace_tpu_torch.trace.binraster import INF, Z_MARGIN, _counts
+from ntrace_tpu_torch.trace.binraster import (INF, Z_MARGIN, _counts,
+                                              _pad_rows, _tri_lanes,
+                                              _vert_channels, bin_visits,
+                                              check_operands,
+                                              dense_rays, fold_visits,
+                                              launch, range_operands)
 
 GPT = 8          # tris per group (sublanes)
 GROUPS = 11      # groups per (8, 128) tile
@@ -45,9 +52,7 @@ TPT = GPT * GROUPS   # 88 tris per tile
 CPL = 11         # lanes per group: v0(3) e1(3) e2(3) tid zmin
 SENT = 0x7FFFFFFF    # sort key of an empty slot
 Z_BITS = 12          # low key bits holding truncated z; bins get the rest
-KERNELS = ("walk", "dma")
-# Pair-test elements per chunk of the plain version (visits x rays x 88).
-REF_CHUNK = 1 << 23
+KERNELS = ("walk", "dma", "visits")
 
 
 def bin_mcodes(txn: int, tyn: int, max_bits: int) -> np.ndarray:
@@ -118,21 +123,6 @@ def _pack_dense(lanes: torch.Tensor, zdec: torch.Tensor, p_cap: int):
                       device=lanes.device)
     out[:, :GROUPS * CPL] = cols.reshape(nt * GPT, GROUPS * CPL)
     return out
-
-
-def _vert_channels(verts: torch.Tensor) -> torch.Tensor:
-    """(n, 9) float32 [v0 e1 e2] with e1 = v1 - v0, e2 = v2 - v0."""
-    v0 = verts[:, 0]
-    return torch.cat([v0, verts[:, 1] - v0, verts[:, 2] - v0], dim=1)
-
-
-def _pad_rows(a: torch.Tensor, n: int, fill) -> torch.Tensor:
-    """a with rows appended (value `fill`) up to n rows."""
-    if a.shape[0] >= n:
-        return a
-    pad = torch.full((n - a.shape[0],) + tuple(a.shape[1:]), fill,
-                     dtype=a.dtype, device=a.device)
-    return torch.cat([a, pad])
 
 
 def binraster_prep_dense5(verts, cam, mcodes, *, width, height, tile,
@@ -233,9 +223,7 @@ def binraster_prep_dense5(verts, cam, mcodes, *, width, height, tile,
     g2k = _pad_rows(sok2, g2_max, SENT)[:g2_max]
     g2i = _pad_rows(g2i, g2_max, 0)[:g2_max]
     g2valid = g2k != SENT
-    glanes = torch.cat([
-        _vert_channels(verts[g2i]),
-        torch.where(g2valid, g2i, -1).to(torch.float32)[:, None]], dim=1)
+    glanes = _tri_lanes(verts[g2i], g2i, g2valid)
     gzdec = (g2k << zshift).view(torch.float32)
     gzdec = torch.where(g2valid, gzdec, torch.tensor(INF, device=dev))
     grows = _pack_dense(glanes, gzdec, g2_max)
@@ -249,69 +237,23 @@ def binraster_prep_dense5(verts, cam, mcodes, *, width, height, tile,
 binraster_prep_dense5.calls = 0   # preps run since the last reset
 
 
-def dense_rays(dirn, pos, tmin, tmax, n_bins: int, ray_rows: int):
-    """Kernel ray operands: dirs (3 * n_bins * ray_rows, 128) f32, the
-    components stacked (all x, then y, then z, in slot order), and scalars
-    (8,) f32 [ox, oy, oz, tmin, tmax, 0, 0, 0]. tmin, tmax: 0-d."""
-    dirs = dirn.t().reshape(3 * n_bins * ray_rows, 128)
-    zero = torch.zeros((), dtype=torch.float32, device=dirn.device)
-    scalars = torch.cat([pos.to(torch.float32),
-                         torch.stack([tmin, tmax, zero, zero, zero])])
-    return dirs, scalars
-
-
 def _check(rows, row0, row1, dirs, scalars, g_r1, n_bins, ray_rows):
-    nrd = n_bins * ray_rows
-    want = [("rows", rows, torch.float32, None),
-            ("row0", row0, torch.int32, (n_bins,)),
-            ("row1", row1, torch.int32, (n_bins,)),
-            ("dirs", dirs, torch.float32, (3 * nrd, 128)),
-            ("scalars", scalars, torch.float32, (8,))]
-    if g_r1 is not None:
-        want.append(("g_r1", g_r1, torch.int32, (1,)))
-    for name, a, dtype, shape in want:
-        if a.dtype != dtype:
-            raise TypeError(f"{name}: dtype {a.dtype}, want {dtype}")
-        if shape is not None and tuple(a.shape) != shape:
-            raise ValueError(f"{name}: shape {tuple(a.shape)}, want {shape}")
-        if a.device != rows.device:
-            raise ValueError(f"{name} on {a.device}, rows on {rows.device}")
-    if (rows.dim() != 2 or rows.shape[1] != 128 or rows.shape[0] % GPT
-            or rows.shape[0] == 0):
-        raise ValueError(f"rows: shape {tuple(rows.shape)}, want "
-                         "(n_tiles * 8, 128) with n_tiles >= 1")
-    if n_bins < 1 or ray_rows < 1:
-        raise ValueError("n_bins and ray_rows must be >= 1")
+    check_operands(rows, dirs, scalars, n_bins, ray_rows,
+                   range_operands(row0, row1, g_r1, n_bins), row_mult=GPT)
 
 
 def _run(entry: str, rows, row0, row1, dirs, scalars, g_r1, n_bins,
          ray_rows, extra):
-    """Allocate the outputs and launch one C entry point of
-    dense_trace.cu on the current stream. Returns (tri, t, u, v)."""
-    from ntrace_tpu_torch.kernels.build import library
-
-    r = n_bins * ray_rows * 128
-    dev = rows.device
-    outs = (torch.empty((r,), dtype=torch.int32, device=dev),
-            torch.empty((r,), dtype=torch.float32, device=dev),
-            torch.empty((r,), dtype=torch.float32, device=dev),
-            torch.empty((r,), dtype=torch.float32, device=dev))
-    args = [a.contiguous() for a in (rows, row0, row1, dirs, scalars)]
-    if args[0].data_ptr() % 16:
+    """Launch one C entry point of dense_trace.cu on the current stream.
+    Returns (tri, t, u, v)."""
+    ops = [a.contiguous() for a in (rows, row0, row1, dirs, scalars)]
+    if ops[0].data_ptr() % 16:
         raise ValueError("rows must be 16-byte aligned (tiles load as "
                          "float4)")
     g = None if g_r1 is None else g_r1.contiguous()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(library(), entry)(
-            args[0].data_ptr(), args[1].data_ptr(), args[2].data_ptr(),
-            None if g is None else g.data_ptr(), args[3].data_ptr(),
-            args[4].data_ptr(), n_bins, ray_rows,
-            rows.shape[0] // GPT, *extra, *(o.data_ptr() for o in outs),
-            stream)
-    if rc != 0:
-        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
-    return outs
+    return launch(entry, (n_bins, ray_rows, rows.shape[0] // GPT, *extra),
+                  (*ops[:3], g, *ops[3:]), n_bins * ray_rows * 128,
+                  rows.device)
 
 
 def trace_dense_rows(rows, row0, row1, dirs, scalars, g_r1=None, *,
@@ -355,93 +297,130 @@ def trace_dense_rows_dma(rows, row0, row1, dirs, scalars, g_r1=None, *,
 trace_dense_rows_dma.launches = 0   # kernel launches since the last reset
 
 
-def _visits(row0, row1, g: int, n_bins: int):
-    """Every (bin, tile) visit of the kernels' walk: the global prefix
-    tiles [0, g), then the bin's tiles [row0, row1). Returns (bin, tile)
-    int64 (V,)."""
-    span = (row1 - row0).clamp_min(0).to(torch.int64)
-    per_bin = span + g
-    vbin = torch.repeat_interleave(
-        torch.arange(n_bins, device=row0.device), per_bin)
-    start = torch.cumsum(per_bin, 0) - per_bin
-    j = torch.arange(vbin.numel(), device=row0.device) - start[vbin]
-    vtile = torch.where(j < g, j, row0.to(torch.int64)[vbin] + j - g)
-    return vbin, vtile
+def _tiles(rows: torch.Tensor) -> torch.Tensor:
+    """(n_tiles, 88, 11) triangle lanes of the (n_tiles * 8, 128) tiles."""
+    nt = rows.shape[0] // GPT
+    return rows.reshape(nt, GPT, 128)[:, :, :GROUPS * CPL].reshape(
+        nt, TPT, CPL)
 
 
 def trace_dense_rows_ref(rows, row0, row1, dirs, scalars, g_r1=None, *,
                          n_bins: int, ray_rows: int, ez_chunk: int = 0):
-    """Plain torch version of both kernels, on any device.
+    """Plain torch version of the walk and dma kernels, on any device.
 
-    It enumerates every (bin, tile) visit, runs Moller-Trumbore in chunks
-    over visits x rays x 88 triangles with the kernels' op order, and
-    reduces each ray by the lexicographic (t, id) minimum over the
-    candidates with t < tmax (the kernels' accumulator starts at
-    (tmax, -1)). Since every accepted t > tmin >= 0, the key
-    (t bits << 32) | id orders like (t, id), and `scatter_reduce("amin")`
-    is exact. Early-z skips only tiles that cannot change a result, so this
-    version walks every tile whatever `ez_chunk` says: a kernel with
-    early-z on must still equal it bit for bit.
+    It enumerates every (bin, tile) visit and folds them with
+    `binraster.fold_visits` (Moller-Trumbore in the kernels' op order, an
+    exact (t, id) minimum per ray). Early-z skips only tiles that cannot
+    change a result, so this version walks every tile whatever `ez_chunk`
+    says: a kernel with early-z on must still equal it bit for bit.
     """
     _check(rows, row0, row1, dirs, scalars, g_r1, n_bins, ray_rows)
     if ez_chunk < 0:
         raise ValueError(f"ez_chunk {ez_chunk} < 0")
-    dev = rows.device
-    rpb = ray_rows * 128
-    r = n_bins * rpb
-    ox, oy, oz, tn, tx = (scalars[i] for i in range(5))
-    if float(tn) < 0:
-        raise ValueError("trace_dense_rows_ref needs tmin >= 0 (its sort "
-                         "key orders t by its bits)")
-    nt = rows.shape[0] // GPT
-    tris = rows.reshape(nt, GPT, 128)[:, :, :GROUPS * CPL].reshape(
-        nt, TPT, CPL)
-    d = dirs.reshape(3, n_bins, rpb)
     g = 0 if g_r1 is None else int(g_r1[0])
-    vbin, vtile = _visits(row0, row1, g, n_bins)
-    lane = torch.arange(rpb, device=dev)
-    no_hit = torch.iinfo(torch.int64).max
-    best = torch.full((r,), no_hit, dtype=torch.int64, device=dev)
-    hu = torch.zeros((r,), dtype=torch.float32, device=dev)
-    hv = torch.zeros((r,), dtype=torch.float32, device=dev)
-    step = max(REF_CHUNK // (rpb * TPT), 1)
-    for s in range(0, vbin.numel(), step):
-        vb, tt = vbin[s:s + step], tris[vtile[s:s + step]][:, None]
-        v0x, v0y, v0z = tt[..., 0], tt[..., 1], tt[..., 2]     # (C, 1, 88)
-        e1x, e1y, e1z = tt[..., 3], tt[..., 4], tt[..., 5]
-        e2x, e2y, e2z = tt[..., 6], tt[..., 7], tt[..., 8]
-        tid = tt[..., 9].to(torch.int32)
-        dx, dy, dz = (d[c, vb][:, :, None] for c in range(3))  # (C, rpb, 1)
-        tvx, tvy, tvz = ox - v0x, oy - v0y, oz - v0z
-        qx = tvy * e1z - tvz * e1y
-        qy = tvz * e1x - tvx * e1z
-        qz = tvx * e1y - tvy * e1x
-        c0 = e2x * qx + e2y * qy + e2z * qz
-        px = dy * e2z - dz * e2y
-        py = dz * e2x - dx * e2z
-        pz = dx * e2y - dy * e2x
-        det = e1x * px + e1y * py + e1z * pz
-        one = torch.ones_like(det)
-        inv = one / torch.where(det == 0, one, det)
-        u = (tvx * px + tvy * py + tvz * pz) * inv
-        v = (dx * qx + dy * qy + dz * qz) * inv
-        t = c0 * inv
-        ok = ((det != 0) & (tid >= 0) & (u >= 0) & (v >= 0) & (u + v <= 1)
-              & (t > tn) & (t < tx))
-        key = torch.where(
-            ok, (t.view(torch.int32).to(torch.int64) << 32)
-            | tid.to(torch.int64), no_hit)
-        kmin, arg = key.min(dim=2)                              # (C, rpb)
-        ray = vb[:, None] * rpb + lane[None, :]
-        best.scatter_reduce_(0, ray.reshape(-1), kmin.reshape(-1), "amin")
-        win = (kmin == best[ray]) & (kmin != no_hit)
-        sel = arg[:, :, None]
-        hu[ray[win]] = torch.gather(u, 2, sel)[..., 0][win]
-        hv[ray[win]] = torch.gather(v, 2, sel)[..., 0][win]
-    hit = best != no_hit
-    tri = torch.where(hit, (best & 0xFFFFFFFF).to(torch.int32), -1)
-    t_bits = (best >> 32).to(torch.int32).view(torch.float32)
-    return tri, torch.where(hit, t_bits, tx), hu, hv
+    vbin, vtile = bin_visits(row0, row1, g, n_bins)
+    return fold_visits(_tiles(rows), vbin, vtile, dirs, scalars, n_bins,
+                       ray_rows * 128)
+
+
+# -- the visit-list kernel -------------------------------------------------
+#
+# One (tile, bin) visit per list entry, bin-contiguous: each bin's global
+# tiles first, then its own range, at least one visit per bin. A filler
+# visit (an empty bin's floor visit, the padding up to v_cap) re-tests a
+# real tile: every tested pair runs the exact Moller-Trumbore predicate,
+# and a triangle whose projection misses a bin cannot meet its rays, so
+# extra tests change no closest hit. There is no early-z.
+
+
+def visit_cap(p_max: int, nb: int, g2_max: int = 0) -> int:
+    """Static bound on the visit count (a multiple of 8): every tile holds
+    pairs of at most (bins it straddles) bins, one straddle and the floor
+    visit per bin, plus each bin's global prefix."""
+    nt = p_max // TPT
+    v = nt + 2 * nb + nb * (g2_max // TPT)
+    return v + (-v) % 8
+
+
+def build_visit_list(row0, row1, g_r1, *, v_cap: int, nb: int):
+    """Expand per-bin tile ranges into (vis_tile, vis_bin) int32 arrays of
+    static length v_cap, bin-contiguous; padding visits repeat the last
+    real visit's tile under bin nb - 1. No host read: the sizes are
+    static."""
+    dev = row0.device
+    i64 = dict(dtype=torch.int64, device=dev)
+    g = (torch.zeros((), **i64) if g_r1 is None
+         else g_r1[0].to(torch.int64))
+    r0, r1 = row0.to(torch.int64), row1.to(torch.int64)
+    nv = torch.clamp_min(r1 - r0, 1) + g
+    voffs = torch.cumsum(nv, 0) - nv
+    total = nv.sum()
+    # Each bin's first visit marks its slot; a running max spreads it.
+    first = torch.zeros((v_cap + 1,), **i64)
+    first.scatter_reduce_(0, voffs.clamp(max=v_cap),
+                          torch.arange(nb, **i64), "amax")
+    bin_of_v = torch.cummax(first[:v_cap], 0).values
+    v = torch.arange(v_cap, **i64)
+    slot = v - voffs[bin_of_v]
+    r0b, r1b = r0[bin_of_v], r1[bin_of_v]
+    tile = torch.where(slot < g, slot, torch.minimum(
+        r0b + slot - g, torch.maximum(r1b - 1, r0b)))
+    valid = v < total
+    last = tile[(total - 1).clamp(0, v_cap - 1)]
+    tile = torch.where(valid, tile, last)
+    binv = torch.where(valid, bin_of_v, nb - 1)
+    return tile.to(torch.int32), binv.to(torch.int32)
+
+
+def _check_visits(rows, vis_tile, vis_bin, dirs, scalars, n_bins, ray_rows):
+    check_operands(rows, dirs, scalars, n_bins, ray_rows,
+                   [("vis_tile", vis_tile, None), ("vis_bin", vis_bin,
+                                                   tuple(vis_tile.shape))],
+                   row_mult=GPT)
+
+
+def trace_dense_visits(rows, vis_tile, vis_bin, dirs, scalars, *,
+                       n_bins: int, ray_rows: int):
+    """Trace prepped dense tiles through the visit-list kernel: each visit
+    tests its bin's rays against tile vis_tile[i] (clamped to the table)
+    for bin vis_bin[i]. dirs and scalars as `dense_rays` makes them;
+    tmin >= 0. Returns (tri, t, u, v), each (n_bins * ray_rows * 128,), in
+    slot order, bit-equal to `trace_dense_rows` on the visits
+    `build_visit_list` makes."""
+    _check_visits(rows, vis_tile, vis_bin, dirs, scalars, n_bins, ray_rows)
+    if not uses_kernel(rows):
+        return trace_dense_visits_ref(rows, vis_tile, vis_bin, dirs,
+                                      scalars, n_bins=n_bins,
+                                      ray_rows=ray_rows)
+    if float(scalars[3]) < 0:
+        raise ValueError("trace_dense_visits needs tmin >= 0: its 64-bit "
+                         "(t, id) key orders t by its bits")
+    ops = [a.contiguous() for a in (rows, vis_tile, vis_bin, dirs,
+                                    scalars)]
+    if ops[0].data_ptr() % 16:
+        raise ValueError("rows must be 16-byte aligned (tiles load as "
+                         "float4)")
+    r = n_bins * ray_rows * 128
+    keys = torch.empty((r,), dtype=torch.int64, device=rows.device)
+    outs = launch("ntrace_dense_visits",
+                  (vis_tile.shape[0], n_bins, ray_rows,
+                   rows.shape[0] // GPT), (*ops, keys), r, rows.device)
+    trace_dense_visits.launches += 1
+    return outs
+
+
+trace_dense_visits.launches = 0   # kernel launches since the last reset
+
+
+def trace_dense_visits_ref(rows, vis_tile, vis_bin, dirs, scalars, *,
+                           n_bins: int, ray_rows: int):
+    """Plain torch version of the visit-list kernel: it walks the list
+    itself, each visit's tile index clamped to the table, through
+    `binraster.fold_visits`."""
+    _check_visits(rows, vis_tile, vis_bin, dirs, scalars, n_bins, ray_rows)
+    nt = rows.shape[0] // GPT
+    return fold_visits(_tiles(rows), vis_bin, vis_tile.clamp(0, nt - 1),
+                       dirs, scalars, n_bins, ray_rows * 128)
 
 
 def trace_dense_primary(verts, cam, dirn, *, width, height, tile=16,
@@ -457,12 +436,10 @@ def trace_dense_primary(verts, cam, dirn, *, width, height, tile=16,
     """
     if sort_mode != "v5":
         raise NotImplementedError(
-            f"sort_mode {sort_mode!r}: only prep v5 is ported (ROADMAP "
-            "queue 1, item 7: v2-v4 were superseded)")
+            f"sort_mode {sort_mode!r}: only prep v5 is ported (v2-v4 were "
+            "measured and superseded, PERF_NOTES.md:593-644)")
     if kernel not in KERNELS:
-        raise NotImplementedError(
-            f"kernel {kernel!r} is not ported yet (ROADMAP queue 2, item "
-            "12: the visit-list kernel)")
+        raise ValueError(f"kernel must be one of {KERNELS}, not {kernel!r}")
     if width % tile or height % tile or tile & (tile - 1):
         raise ValueError("W/H must be multiples of the power-of-two tile")
     if (tile * tile) % 128:
@@ -485,7 +462,12 @@ def trace_dense_primary(verts, cam, dirn, *, width, height, tile=16,
     rows, row0, row1, g_r1, ok = binraster_prep_dense5(
         verts, cam, mcodes, p_max=p_max, n_ks=n_ks, k_cap=k_cap,
         g2_max=g2_max, z_bits=Z_BITS, **kw)
-    if kernel == "dma":
+    if kernel == "visits":
+        vt, bv = build_visit_list(row0, row1, g_r1,
+                                  v_cap=visit_cap(p_max, nb, g2_max), nb=nb)
+        tri, t, u, v = trace_dense_visits(rows, vt, bv, dirs, scalars,
+                                          n_bins=nb, ray_rows=ray_rows)
+    elif kernel == "dma":
         tri, t, u, v = trace_dense_rows_dma(
             rows, row0, row1, dirs, scalars, g_r1, n_bins=nb,
             ray_rows=ray_rows)

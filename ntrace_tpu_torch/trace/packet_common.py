@@ -29,6 +29,11 @@ STACK_DEPTH = 128          # as packet_pallas.py STACK_DEPTH
 MAX_STEPS = 4_000_000      # malformed-tree backstop, per ray
 DONE = -(2 ** 31)          # traversal reference: nothing left to visit
 RUN_ROWS = 32              # rows one leaf-run entry can hold (5 bits)
+# The slab test's relative slack, 1 -/+ 2^-20: csrc/trace_common.cuh:slab
+# says why (leaf boxes flat in one axis crack shared edges otherwise).
+SLAB_EPS = 2.0 ** -20
+SLAB_LO = 1.0 - SLAB_EPS
+SLAB_HI = 1.0 + SLAB_EPS
 
 
 def check_rays(tables: PackedTables, orig, dirn, tmin, tmax):
@@ -97,7 +102,9 @@ def slab_child(rec: torch.Tensor, base: int, ox, oy, oz, ix, iy, iz,
     """Slab-test the child whose 6 bounds start at lane `base` of the (N, 16)
     node records (leading dimensions broadcast, as in mt_row_best).
     NaN-suppressing min/max (torch.fmin/fmax), entry clamped to tmin, exit
-    to tmax (the running hit distance).
+    to tmax (the running hit distance); the box passes when
+    entry * SLAB_LO <= exit * SLAB_HI, the conservative test of
+    csrc/trace_common.cuh:slab (which says why). Needs tmin >= 0.
     Returns (hit, entry t), each (N,)."""
     tlo_x = (rec[..., base + 0] - ox) * ix
     thi_x = (rec[..., base + 1] - ox) * ix
@@ -111,7 +118,7 @@ def slab_child(rec: torch.Tensor, base: int, ox, oy, oz, ix, iy, iz,
     end = torch.fmin(
         torch.fmin(torch.fmax(tlo_x, thi_x), torch.fmax(tlo_y, thi_y)),
         torch.fmin(torch.fmax(tlo_z, thi_z), tmax))
-    return begin <= end, begin
+    return begin * SLAB_LO <= end * SLAB_HI, begin
 
 
 def mt_row_best(trow: torch.Tensor, ox, oy, oz, dx, dy, dz, tn, tpr: int):

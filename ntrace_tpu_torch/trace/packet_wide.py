@@ -23,7 +23,10 @@ traversal (csrc/packet_wide.cu says how):
   - exact=False, the reference renderer's choice: the conservative packet
     test (packet_wide.py:96-175, 199-233): four corner-frustum planes
     around the dominant axis, biased by the origin box, and the t-interval
-    along that axis against [max(entry, least tmin), min(exit, ptmax)]. A
+    along that axis against [max(entry, least tmin), min(exit, ptmax)].
+    Both take the slab test's relative slack (packet_common.SLAB_EPS): on
+    the planes, 2^-20 of the sum of the magnitudes of each plane sum's
+    terms. A
     packet with no sign-consistent axis (degenerate) passes every child
     the interval admits, and an empty slot decodes to a leaf of row 0
     (superset-safe). Where a plane's quotients are not finite (a direction
@@ -55,7 +58,9 @@ from ntrace_tpu_torch.device import uses_kernel
 from ntrace_tpu_torch.ops.aabb import safe_inv_dir
 from ntrace_tpu_torch.tables import WideTables
 from ntrace_tpu_torch.trace.packet_common import (INF, INT_MAX, MAX_STEPS,
-                                                  RUN_ROWS, STACK_DEPTH,
+                                                  RUN_ROWS, SLAB_EPS,
+                                                  SLAB_HI, SLAB_LO,
+                                                  STACK_DEPTH,
                                                   check_rays, hit_outputs,
                                                   mt_row_best, run_rows,
                                                   slab_child, start_work,
@@ -171,9 +176,11 @@ def packet_frustum(o, d, tn, present) -> dict:
     lo3, hi3 = torch.stack(olo, 1)[:, None], torch.stack(ohi, 1)[:, None]
     bb = torch.where(n > 0, n * lo3, n * hi3)
     beta = (bb[..., 0] + bb[..., 1]) + bb[..., 2]           # (P, 4)
+    babs = (bb[..., 0].abs() + bb[..., 1].abs()) + bb[..., 2].abs()
     one = torch.ones_like(dAl)
     return {
         "signs": signs, "degen": degen, "A": A, "n": n, "beta": beta,
+        "babs": babs,
         "plane_pass": ~torch.isfinite(n).all(2),
         "iAl": 1.0 / torch.where(degen, one, dAh),
         "iAh": 1.0 / torch.where(degen, one, dAl),
@@ -192,8 +199,10 @@ def frustum_hits(F: dict, p: torch.Tensor, row: torch.Tensor,
     n = F["n"][p][:, :, None, :]                            # (k, 4, 1, 3)
     X = n * torch.where(n > 0, hi[:, None], lo[:, None])
     d2 = (X[..., 0] + X[..., 1]) + X[..., 2]                # (k, 4, 8)
+    sx = (X[..., 0].abs() + X[..., 1].abs()) + X[..., 2].abs()
+    slack = -(SLAB_EPS * (sx + F["babs"][p][:, :, None]))
     ok = F["plane_pass"][p][:, :, None] | (
-        d2 - F["beta"][p][:, :, None] >= 0)
+        d2 - F["beta"][p][:, :, None] >= slack)
     degen = F["degen"][p]
     inside = ok.all(1) | degen[:, None]
     A = F["A"][p][:, None, None].expand(-1, ARITY, 1)
@@ -213,8 +222,8 @@ def frustum_hits(F: dict, p: torch.Tensor, row: torch.Tensor,
     ext = torch.where(degen[:, None], INF,
                       torch.fmin(torch.fmax(xlo, xhi), torch.tensor(INF)))
     tn_lo = F["tn_lo"][p][:, None]
-    return inside & (torch.fmax(ent, tn_lo)
-                     <= torch.fmin(ext, ptmax[p][:, None]))
+    return inside & (torch.fmax(ent, tn_lo) * SLAB_LO
+                     <= torch.fmin(ext, ptmax[p][:, None]) * SLAB_HI)
 
 
 class _Packets:

@@ -16,6 +16,8 @@ Tolerances, and why:
   port's t/u/v are bit-equal to `brute_force_mt`, and misses carry the
   exact miss record (t = tmax, u = v = 0).
 - The renderer's image within atol 1e-6, as tests/test_torch_render.py.
+- The visit list (`visit_cap`, `build_visit_list`) is integer and equal to
+  the reference's; the visit-list twin is bit-equal to the walk twin.
 """
 
 import re
@@ -244,9 +246,11 @@ def jax_hits(spec, k_cap):
 
 @pytest.mark.parametrize("spec,kernel,ez_chunk,k_cap", [
     (FRONT, "walk", 0, 64), (FRONT, "walk", 4, 64), (FRONT, "dma", 0, 64),
-    (INSIDE, "walk", 4, GLOBAL_K_CAP), (INSIDE, "dma", 0, GLOBAL_K_CAP)],
+    (INSIDE, "walk", 4, GLOBAL_K_CAP), (INSIDE, "dma", 0, GLOBAL_K_CAP),
+    (FRONT, "visits", 0, 64), (INSIDE, "visits", 0, GLOBAL_K_CAP)],
     ids=["front-walk-ez0", "front-walk-ez4", "front-dma",
-         "inside-global-walk-ez4", "inside-global-dma"])
+         "inside-global-walk-ez4", "inside-global-dma", "front-visits",
+         "inside-global-visits"])
 def test_trace_dense_primary_matches_reference(spec, kernel, ez_chunk,
                                                k_cap):
     f = frame(spec)
@@ -269,12 +273,12 @@ def test_twin_is_visit_order_invariant():
                                   f.cam["zfar"], 16, 2)
     ops = (rows, r0, r1, dirs, scalars, g1)
     whole = bd.trace_dense_rows_ref(*ops, n_bins=16, ray_rows=2)
-    old = bd.REF_CHUNK
+    old = br.REF_CHUNK
     try:
-        bd.REF_CHUNK = 1
+        br.REF_CHUNK = 1
         one = bd.trace_dense_rows_ref(*ops, n_bins=16, ray_rows=2)
     finally:
-        bd.REF_CHUNK = old
+        br.REF_CHUNK = old
     for a, b in zip(whole, one):
         assert torch.equal(a, b)
 
@@ -283,8 +287,96 @@ def test_unported_options_raise():
     f = frame(FRONT)
     with pytest.raises(NotImplementedError, match="v5"):
         f.port_dense(sort_mode="s11")
-    with pytest.raises(NotImplementedError, match="visit-list"):
-        f.port_dense(kernel="visits")
+
+
+# -- the visit list --------------------------------------------------------
+
+
+def _structure(f, k_cap):
+    """Prep v5 of a frame (port), with its static sizes."""
+    args, _, _ = _prep_args(f, k_cap)
+    mcodes = torch.from_numpy(jax_bd.bin_mcodes(f.W // 16, f.H // 16, 19))
+    out = bd.binraster_prep_dense5(f.port_verts(), f.cam, mcodes, **args)
+    return out, args
+
+
+@pytest.mark.parametrize("spec,k_cap", [(FRONT, 64), (INSIDE, GLOBAL_K_CAP),
+                                        (OBLIQUE, 64)],
+                         ids=["front", "inside-global", "oblique"])
+def test_visit_list_matches_reference(spec, k_cap):
+    f = frame(spec)
+    (rows, r0, r1, g1, _), args = _structure(f, k_cap)
+    nb = (f.W // 16) * (f.H // 16)
+    for p_max, g2 in ((args["p_max"], args["g2_max"]), (88, 0),
+                      (10 * 88, 88)):
+        assert bd.visit_cap(p_max, nb, g2) == jax_bd.visit_cap(p_max, nb, g2)
+    v_cap = bd.visit_cap(args["p_max"], nb, args["g2_max"])
+    got = bd.build_visit_list(r0, r1, g1, v_cap=v_cap, nb=nb)
+    ref = jax_bd.build_visit_list(
+        jnp.asarray(r0.numpy()), jnp.asarray(r1.numpy()),
+        None if g1 is None else jnp.asarray(g1.numpy()), v_cap=v_cap, nb=nb)
+    for a, b in zip(got, ref):
+        assert a.dtype == torch.int32
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert (got[1].numpy() == np.arange(nb)[:, None]).any(1).all()
+
+
+@pytest.mark.parametrize("v_cap", [16, 24, 40])
+def test_visit_list_edge_cases_match_reference(v_cap):
+    """Empty bins (floor visits), an empty trailing bin whose row0 is the
+    tile count (its floor visit points one past the table), a global
+    prefix, and a list longer or shorter than the visits."""
+    row0 = torch.tensor([0, 2, 2, 5, 6], dtype=torch.int32)
+    row1 = torch.tensor([2, 2, 5, 6, 6], dtype=torch.int32)
+    for g1 in (None, torch.tensor([1], dtype=torch.int32)):
+        got = bd.build_visit_list(row0, row1, g1, v_cap=v_cap, nb=5)
+        ref = jax_bd.build_visit_list(
+            jnp.asarray(row0.numpy()), jnp.asarray(row1.numpy()),
+            None if g1 is None else jnp.asarray(g1.numpy()), v_cap=v_cap,
+            nb=5)
+        for a, b in zip(got, ref):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+@pytest.mark.parametrize("spec,k_cap", [(FRONT, 64), (INSIDE, GLOBAL_K_CAP)],
+                         ids=["front", "inside-global"])
+def test_visits_twin_matches_walk_twin(spec, k_cap):
+    f = frame(spec)
+    ops, kw = _frozen_ops(f, k_cap)
+    rows, r0, r1, dirs, scalars, g1 = ops
+    args, _, _ = _prep_args(f, k_cap)
+    v_cap = bd.visit_cap(args["p_max"], kw["n_bins"], args["g2_max"])
+    vt, vb = bd.build_visit_list(r0, r1, g1, v_cap=v_cap, nb=kw["n_bins"])
+    walk = bd.trace_dense_rows_ref(*ops, **kw)
+    got = bd.trace_dense_visits(rows, vt, vb, dirs, scalars, **kw)
+    for a, b in zip(got, walk):
+        assert torch.equal(a, b)
+    # A visit past the table is clamped to its last tile, as the kernel
+    # does: the same result as a visit of that tile.
+    nt = rows.shape[0] // bd.GPT
+    past = bd.trace_dense_visits_ref(rows, torch.full_like(vt, nt), vb,
+                                     dirs, scalars, **kw)
+    last = bd.trace_dense_visits_ref(rows, torch.full_like(vt, nt - 1), vb,
+                                     dirs, scalars, **kw)
+    for a, b in zip(past, last):
+        assert torch.equal(a, b)
+
+
+def test_visits_match_jax_kernel():
+    # One interpret-mode run of the reference's visit-list kernel on the
+    # frozen structure: the same hit ids.
+    f = frame(FRONT)
+    ops, kw = _frozen_ops(f)
+    rows, r0, r1, dirs, scalars, g1 = ops
+    args, _, _ = _prep_args(f, 64)
+    v_cap = bd.visit_cap(args["p_max"], kw["n_bins"], args["g2_max"])
+    vt, vb = bd.build_visit_list(r0, r1, g1, v_cap=v_cap, nb=kw["n_bins"])
+    got = bd.trace_dense_visits(rows, vt, vb, dirs, scalars, **kw)
+    ref = jax_bd.trace_dense_visits(
+        *(jnp.asarray(a.numpy()) for a in (rows, vt, vb, dirs, scalars)),
+        interpret=True, **kw)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(ref[0]))
+    assert (got[0] >= 0).sum() > 100
 
 
 # -- kernel wrappers: routing, binding, and the card ------------------------
@@ -335,6 +427,38 @@ def test_cuda_input_never_reaches_twin(monkeypatch, wrapper, entry):
     assert fn.launches == before + 1
 
 
+def test_visits_input_never_reaches_twin(monkeypatch):
+    ops, kw = _frozen_ops(frame(OBLIQUE))
+    rows, r0, r1, dirs, scalars, g1 = ops
+    vt, vb = bd.build_visit_list(r0, r1, g1, v_cap=64, nb=kw["n_bins"])
+    launched = []
+
+    def twin(*a, **k):
+        raise AssertionError("a kernel-routed tensor reached the twin")
+
+    def fake_launch(name, ints, tensors, n, dev):
+        launched.append((name, ints, len(tensors)))
+        return ()
+
+    monkeypatch.setattr(bd, "trace_dense_visits_ref", twin)
+    monkeypatch.setattr(bd, "uses_kernel", lambda t: True)
+    monkeypatch.setattr(bd, "launch", fake_launch)
+    before = bd.trace_dense_visits.launches
+    bd.trace_dense_visits(rows, vt, vb, dirs, scalars, **kw)
+    assert launched == [("ntrace_dense_visits",
+                         (64, kw["n_bins"], 2, rows.shape[0] // bd.GPT), 6)]
+    assert bd.trace_dense_visits.launches == before + 1
+    bad = scalars.clone()
+    bad[3] = -1.0
+    with pytest.raises(ValueError, match="tmin"):
+        bd.trace_dense_visits(rows, vt, vb, dirs, bad, **kw)
+    with pytest.raises(TypeError):
+        bd.trace_dense_visits(rows, vt.long(), vb, dirs, scalars, **kw)
+    with pytest.raises(ValueError):
+        bd.trace_dense_visits(rows, vt, vb[:-1], dirs, scalars, **kw)
+    assert bd.trace_dense_visits.launches == before + 1
+
+
 def test_wrappers_reject_bad_operands():
     ops, kw = _frozen_ops(frame(OBLIQUE))
     rows, r0, r1, dirs, scalars, g1 = ops
@@ -354,7 +478,9 @@ def test_c_entry_points_match_ctypes_signatures():
     traversal kernels define theirs with trace_common.cuh's
     NTRACE_TRAVERSAL_ENTRY(name, kernel), whose one signature counts for
     each name."""
-    assert [p.name for p in kbuild.sources()] == ["dense_trace.cu",
+    assert [p.name for p in kbuild.sources()] == ["binraster_trace.cu",
+                                                  "dense_trace.cu",
+                                                  "dense_visits.cu",
                                                   "packet_ifif.cu",
                                                   "packet_pipe.cu",
                                                   "packet_trace.cu",
@@ -384,9 +510,15 @@ def test_kernels_match_twin_on_cuda(spec, k_cap):
     ops, kw = _frozen_ops(frame(spec), k_cap)
     twin = bd.trace_dense_rows_ref(*ops, **kw)
     dev = [None if a is None else a.cuda() for a in ops]
+    rows, r0, r1, dirs, scalars, g1 = dev
+    args, _, _ = _prep_args(frame(spec), k_cap)
+    vt, vb = bd.build_visit_list(
+        r0, r1, g1, v_cap=bd.visit_cap(args["p_max"], kw["n_bins"],
+                                       args["g2_max"]), nb=kw["n_bins"])
     for out in (bd.trace_dense_rows(*dev, ez_chunk=0, **kw),
                 bd.trace_dense_rows(*dev, ez_chunk=4, **kw),
-                bd.trace_dense_rows_dma(*dev, **kw)):
+                bd.trace_dense_rows_dma(*dev, **kw),
+                bd.trace_dense_visits(rows, vt, vb, dirs, scalars, **kw)):
         torch.cuda.synchronize()
         for a, b in zip(out, twin):
             assert torch.equal(a.cpu(), b)
@@ -444,8 +576,10 @@ def test_renderer_dense_matches_jax(conference, monkeypatch):
     assert (got.hit_tri >= 0).mean() > 0.5 and not (got.hit_tri == -2).any()
 
 
-def test_dense_and_packet_frames_agree(conference):
-    r, ca, batch = _armed(conference, dense_kernel="dma")
+@pytest.mark.parametrize("kernel", ["dma", "visits"])
+def test_dense_and_packet_frames_agree(conference, kernel):
+    r, ca, batch = _armed(conference, dense_kernel=kernel)
+    assert "v_cap" in r._br
     rays = (batch.orig, batch.dirn, batch.tmin, batch.tmax)
     dense = r.trace_primary(*rays, cam=ca, canonical=True)
     bvh = r.trace_primary(*rays, cam=ca, canonical=False)

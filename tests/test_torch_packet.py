@@ -136,6 +136,43 @@ def test_tables_from_packed_keeps_layout(soup_small, tpr, npr):
     assert tables.nbytes() == packed.nbytes()
 
 
+@pytest.mark.parametrize("what", ["node count", "child link", "leaf row",
+                                  "triangle id"])
+def test_tables_refuse_float_ids_past_2_24(soup_small, what):
+    """Child links, leaf first rows and triangle ids are stored as floats,
+    exact below 2**24: a small pack faked past that limit is refused, and
+    the same pack one below it is taken."""
+    from ntrace_tpu_torch.host.bvh.packed import PackedBVH
+
+    packed = pack_bvh(_flat(soup_small), soup_small.tri_verts(),
+                      tris_per_row=12, nodes_per_row=1)
+
+    def faked(v):
+        nodes, tris = packed.nodes8.copy(), packed.tris12.copy()
+        num_nodes = packed.num_nodes
+        if what == "node count":     # claimed, not stored
+            num_nodes = v
+        elif what == "child link":
+            nodes[0, 12] = v                     # an internal child
+        elif what == "leaf row":
+            nodes[0, 13] = -v - 1                # a leaf's first row
+        else:
+            tris[0, 9] = v
+        return PackedBVH(nodes, tris, num_nodes, packed.num_tris, 1, 12)
+
+    limit = 2 ** 24
+    if what == "node count":    # 2**24 - 1 stored nodes would take 8 GB
+        with pytest.raises(ValueError, match="2\\*\\*24"):
+            tables_from_packed(faked(limit), "cpu")
+        return
+    # A leaf row r is stored as -(r + 1): r = 2**24 - 1 already needs
+    # 2**24 in the float.
+    top = limit - 1 if what == "leaf row" else limit
+    tables_from_packed(faked(top - 1), "cpu")
+    with pytest.raises(ValueError, match="2\\*\\*24"):
+        tables_from_packed(faked(top), "cpu")
+
+
 def test_wrapper_rejects_bad_inputs(soup_small, rng):
     tables = tables_from_packed(
         pack_bvh(_flat(soup_small), soup_small.tri_verts()), "cpu")
@@ -187,7 +224,9 @@ def test_library_path_keyed_by_sources():
     path = kbuild.library_path()
     assert path.parent == kbuild.BUILD_DIR
     assert path == kbuild.library_path()
-    assert [p.name for p in kbuild.sources()] == ["dense_trace.cu",
+    assert [p.name for p in kbuild.sources()] == ["binraster_trace.cu",
+                                                  "dense_trace.cu",
+                                                  "dense_visits.cu",
                                                   "packet_ifif.cu",
                                                   "packet_pipe.cu",
                                                   "packet_trace.cu",

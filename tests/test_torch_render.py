@@ -165,7 +165,6 @@ def test_trace_batched_retries_only_on_oom():
 @pytest.mark.parametrize("kw,match", [
     (dict(mode="textured"), "texture"),
     (dict(engine="stack2"), "not ported"),
-    (dict(engine="binraster"), "v1 screen-space engine"),
     (dict(seed_primary="on"), "seeded primary"),
     (dict(engine="packet_bfs"), "packet family"),
     (dict(mode="diffuse", seed_secondary="on"), "item 15"),
@@ -176,6 +175,38 @@ def test_unported_paths_raise(soup_small, kw, match):
     with pytest.raises(NotImplementedError, match=match):
         Renderer(soup_small, BuildConfig(builder="median"), cfg, flat=flat,
                  device="cpu").render(default_camera("soup"))
+
+
+def test_render_binraster_matches_jax(monkeypatch):
+    """engine="binraster" (the v1 screen-space engine, its plain version on
+    the CPU) renders conference@2000 at 64 x 64 as the JAX renderer does,
+    the JAX renderer pinned to the port's V1_* settings (tuned.json's br_*
+    entries; the port reads no tuned.json): hit ids exactly, the image
+    within atol 1e-6."""
+    from ntrace_tpu.render import renderer as jax_renderer
+    from ntrace_tpu_torch.trace import binraster as br
+
+    monkeypatch.setattr(jax_renderer, "_load_tuned", lambda: {
+        "br_k": port.V1_K_SLOTS, "br_k2": port.V1_K2_SLOTS,
+        "br_unroll": port.V1_UNROLL, "br_ez": port.V1_EZ_CHUNK})
+    scene = get_scene("conference", n_tris=2000)
+    build = BuildConfig(builder="binned_sah")
+    flat = build_accel(scene, build)
+    cfg = RenderConfig(width=64, height=64, mode="primary",
+                       engine="binraster")
+    cam = default_camera("conference")
+    jr = JaxRenderer(scene, build, cfg, flat=flat)
+    ref = jr.render(cam)
+    r = Renderer(scene, build, cfg, flat=flat, device="cpu")
+    launches = br.trace_binraster_rows.launches
+    got = r.render(cam)
+    assert br.trace_binraster_rows.launches == launches   # the CPU: twin
+    assert r.primary_engine == "binraster" and r._br is not None
+    for k in ("p_max", "g_max", "g2_max", "nb"):
+        assert r._br[k] == jr._br[k], k
+    np.testing.assert_array_equal(got.hit_tri, ref.hit_tri)
+    np.testing.assert_allclose(got.image, ref.image, rtol=0, atol=1e-6)
+    assert (got.hit_tri >= 0).mean() > 0.5 and not (got.hit_tri == -2).any()
 
 
 @pytest.mark.parametrize("builder", ["hlbvh", "kdtree"])
