@@ -12,9 +12,10 @@ screen-space engine, as bench.py's tuned reference does: prep v5 in
 torch, then the CUDA walk or dma kernel (ntrace_tpu_torch/csrc/
 dense_trace.cu); phases 8 and 9 trace the secondary modes with the packet,
 while-while and speculative while-while kernels, phase 11 every mode with
-the pipelined while-while and the 8-wide packet kernels, and phase 12 the
+the pipelined while-while and the 8-wide packet kernels, phase 12 the
 primary frame with the v1 screen-space engine and the dense engine's
-visit-list kernel.
+visit-list kernel, and phase 13 every mode with the node-batch,
+deferred-leaf and combined packet kernels.
 
 Phases, each printed as it completes:
   1. versions, card name and power limit (nvidia-smi)
@@ -95,6 +96,24 @@ Phases, each printed as it completes:
      every ray; times of the kernels, the twins and the frames with and
      without the prep, beside the bounds (pair tests x MT_OPS; v1's
      early-z work counted by early_z_rows)
+ 13. the node-batch, deferred-leaf and combined packet kernels
+     (csrc/packet_bfs.cu, packet_dleaf.cu, packet_bdl.cu on
+     csrc/packet_batch.cuh): the phase-3 soup check for each (bfs and bdl
+     at (12, 1); dleaf at (12, 1) and (4, 8) and at drain_min 1 and 64,
+     on a 500-triangle soup; bdl at qgroup 1 and 4, with and without
+     merge_sibs, and at drain_min 1 and 64, on a 1,000-triangle soup;
+     any-hit tri bit-equal to the twin);
+     render() of all five modes with engine packet_bfs, packet_dleaf and
+     packet_bdl, every pass on phase 8's rays and through check_pass (at
+     a quarter of its samples: the hits equal phase 8's),
+     closest hits equal to the packet kernel's on every ray, any hits on
+     tri >= 0, images bit-equal to phase 8's, one launch per pass; each
+     kernel bit-equal to its twin on a contiguous slice of whole packets
+     of every batch; phase 7's LBVH tables (built on the card,
+     nodes_per_row 1) traced by each, equal to phase 7's frame; times of
+     the three on the primary, shadow, AO and diffuse batches beside the
+     bound over all eight twins and their own work, and the twins on the
+     primary frame
 Then one JSON line of per-kernel results (with each kernel's bound from
 this run's work), the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises and the script
@@ -135,6 +154,12 @@ from ntrace_tpu_torch.tables import (WideTables, tables_from_packed,
 from ntrace_tpu_torch.trace import binraster as br
 from ntrace_tpu_torch.trace import binraster_dense as bd
 from ntrace_tpu_torch.trace.packet import trace_packet, trace_packet_ref
+from ntrace_tpu_torch.trace.packet_bdl import (trace_packet_bdl,
+                                               trace_packet_bdl_ref)
+from ntrace_tpu_torch.trace.packet_bfs import (trace_packet_bfs,
+                                               trace_packet_bfs_ref)
+from ntrace_tpu_torch.trace.packet_dleaf import (trace_packet_dleaf,
+                                                 trace_packet_dleaf_ref)
 from ntrace_tpu_torch.trace.packet_ifif import (trace_packet_ifif,
                                                 trace_packet_ifif_ref)
 from ntrace_tpu_torch.trace.packet_common import read_bytes, work_with_reads
@@ -180,7 +205,20 @@ NEW_ENGINES = {
                     "ntrace_tpu_torch/csrc/packet_wide.cu",
                     "ntrace_tpu/trace/packet_wide.py:80"),
 }
-ALL_ENGINES = {**ENGINES, **NEW_ENGINES}
+# Phase 13's engines: the node-batch, deferred-leaf and combined packet
+# kernels on the packed tables.
+BATCH_ENGINES = {
+    "packet_bfs": (trace_packet_bfs, trace_packet_bfs_ref,
+                   "ntrace_tpu_torch/csrc/packet_bfs.cu",
+                   "ntrace_tpu/trace/packet_bfs.py:52"),
+    "packet_dleaf": (trace_packet_dleaf, trace_packet_dleaf_ref,
+                     "ntrace_tpu_torch/csrc/packet_dleaf.cu",
+                     "ntrace_tpu/trace/packet_dleaf.py:122"),
+    "packet_bdl": (trace_packet_bdl, trace_packet_bdl_ref,
+                   "ntrace_tpu_torch/csrc/packet_bdl.cu",
+                   "ntrace_tpu/trace/packet_bdl.py:72"),
+}
+ALL_ENGINES = {**ENGINES, **NEW_ENGINES, **BATCH_ENGINES}
 SECONDARY_MODES = ("shadow", "ao", "diffuse", "path")
 ALL_MODES = ("primary",) + SECONDARY_MODES
 SAMPLE_RAYS = 65_536          # stride sample of a batch for twin checks
@@ -779,7 +817,8 @@ def phase_lbvh_frame(r, batch):
     packet tables on the card and render() traces them; the row-scan and
     packet counts are set to 0 just before and read just after. Then the
     oracles, and phase 4's binned-SAH frame on every ray, brute_force_mt
-    deciding any difference. Returns the renderer and the counts."""
+    deciding any difference. Returns the renderer, the counts and the
+    frame."""
     W, H = r.cfg.width, r.cfg.height
     camera = default_camera("conference")
     sah = r.render(camera)
@@ -825,7 +864,7 @@ def phase_lbvh_frame(r, batch):
     log(f"[7] LBVH vs binned-SAH frame on all {len(slot)} rays: tri differs "
         f"on {len(diff)}" + (", each decided by brute_force_mt for LBVH"
                              if len(diff) else ""))
-    return rl, counts
+    return rl, counts, res
 
 
 def phase_lbvh_timing(rl, batch, conf_dev, hair_dev, smi):
@@ -951,16 +990,17 @@ def check_image(tag, img, width, height):
         raise AssertionError(f"{tag}: bad or black image")
 
 
-def check_pass(tag, scene, flat, rays, any_hit, hits):
+def check_pass(tag, scene, flat, rays, any_hit, hits, cut=1):
     """One traced pass against the CPU oracles: any hit, tri >= 0 against
     brute_force_anyhit on ANYHIT_RAYS stride-sampled rays; closest hit, 0
     tie-aware mismatches against trace_cpu_golden on GOLDEN_RAYS and exact
-    tri against brute_force_mt on BRUTE_RAYS."""
+    tri against brute_force_mt on BRUTE_RAYS; each count divided by
+    `cut`."""
     host = [a.cpu().numpy() for a in rays]
     tri, t = hits[0].cpu().numpy(), hits[1].cpu().numpy()
     R = len(tri)
     if any_hit:
-        sub = np.arange(0, R, max(R // ANYHIT_RAYS, 1))
+        sub = np.arange(0, R, max(R // (ANYHIT_RAYS // cut), 1))
         blocked = brute_force_anyhit(scene, *(a[sub] for a in host))
         if not np.array_equal(tri[sub] >= 0, blocked):
             raise AssertionError(f"{tag}: any-hit tri>=0 differs from "
@@ -969,12 +1009,12 @@ def check_pass(tag, scene, flat, rays, any_hit, hits):
         log(f"{tag}: {R} rays, any hit; tri>=0 equal to brute_force_anyhit "
             f"on {len(sub)} (blocked {blocked.mean():.4f})")
         return
-    sub = np.arange(0, R, max(R // GOLDEN_RAYS, 1))
+    sub = np.arange(0, R, max(R // (GOLDEN_RAYS // cut), 1))
     rec = trace_cpu_golden(flat, *(a[sub] for a in host))
     mism = golden_mismatches(tri[sub], t[sub], rec.tri, rec.t)
     if mism:
         raise AssertionError(f"{tag}: {mism} tie-aware golden mismatches")
-    sub2 = np.arange(0, R, max(R // BRUTE_RAYS, 1))
+    sub2 = np.arange(0, R, max(R // (BRUTE_RAYS // cut), 1))
     bf = brute_force_mt(scene, *(a[sub2] for a in host))
     if not np.array_equal(tri[sub2], bf.tri):
         raise AssertionError(f"{tag}: tri differs from brute_force_mt on "
@@ -1294,16 +1334,21 @@ def decided_by_brute_force(tag, scene, rays, hits, rhits):
     return diff.numel()
 
 
-def phase_new_renders(r, secondary):
+def phase_new_renders(r, secondary, names=tuple(NEW_ENGINES),
+                      tag="[11]", cut=1):
     """Phase 11: render() of every mode with engine packet_pipe and
-    packet_wide on phase 4's scene and BVH. Each pass traces phase 8's
+    packet_wide on phase 4's scene and BVH (phase 13: packet_bfs,
+    packet_dleaf and packet_bdl). Each pass traces phase 8's
     rays (phase 4's for primary); any-hit passes equal the packet kernel's
     tri >= 0; closest-hit passes equal its tri/t/u/v on every ray, except,
     for packet_wide (other tables, other culling), rays that brute_force_mt
     decides for packet_wide (after such a ray, a later path pass has other
     rays: it meets the oracles, and phase 8's rays of it are traced again
     and compared); every traced pass passes check_pass; images bit-equal
-    to the packet engine's but for at most one pixel per decided ray. Returns the launches of each kernel over its five renders, the
+    to the packet engine's but for at most one pixel per decided ray
+    (check_pass's samples divided by `cut`: phase 13 runs them at a
+    quarter of phase 8's, whose oracles held the same hits).
+    Returns the launches of each kernel over its five renders, the
     renderers and the rays decided for packet_wide."""
     camera = default_camera("conference")
     ref = {m: (res, passes) for m, (res, passes) in secondary.items()}
@@ -1312,19 +1357,20 @@ def phase_new_renders(r, secondary):
         raise AssertionError(f"render(primary): launches {counts}")
     ref["primary"] = (res, passes)
     launches, renderers, decided = {}, {}, 0
-    for name in NEW_ENGINES:
+    for name in names:
         cfg = RenderConfig(width=r.cfg.width, height=r.cfg.height,
                            engine=name)
         t0 = time.perf_counter()
         rv = Renderer(r.scene, BuildConfig(), cfg, flat=r.flat,
                       device=r.device)
         tb = rv.tables
-        if name == "packet_pipe" and not (
-                torch.equal(tb.nodes8, r.tables.nodes8)
-                and torch.equal(tb.tris12, r.tables.tris12)):
+        if name != "packet_wide" and not (
+                torch.equal(tb.tris12, r.tables.tris12)
+                and (tb.nodes_per_row != r.tables.nodes_per_row
+                     or torch.equal(tb.nodes8, r.tables.nodes8))):
             raise AssertionError(f"{name}: tables differ from phase 4's")
         if name == "packet_wide":
-            log(f"[11] packet_wide tables: {tb.num_nodes} 8-ary nodes, "
+            log(f"{tag} packet_wide tables: {tb.num_nodes} 8-ary nodes, "
                 f"nodes_w {tuple(tb.nodes_w.shape)}, tris12 "
                 f"{tuple(tb.tris12.shape)} at tpr {tb.tris_per_row}, "
                 f"{tb.nbytes() / 1e6:.1f} MB, max_leaf_rows "
@@ -1342,42 +1388,44 @@ def phase_new_renders(r, secondary):
             n_dec = 0
             for pname, (rays, any_hit, hits) in passes.items():
                 rrays, rany, rhits = ref_passes[pname]
-                tag = f"[11] {name} {mode} pass {pname}"
+                ptag = f"{tag} {name} {mode} pass {pname}"
                 if any_hit != rany:
-                    raise AssertionError(f"{tag}: not phase 8's pass")
+                    raise AssertionError(f"{ptag}: not phase 8's pass")
                 if not same_rays(rays, rrays):
-                    if name == "packet_pipe" or not n_dec:
-                        raise AssertionError(f"{tag}: not phase 8's rays")
+                    if name != "packet_wide" or not n_dec:
+                        raise AssertionError(f"{ptag}: not phase 8's rays")
                     # A hit an earlier pass took where the packet kernel
                     # missed it sends that path on with other rays: the
                     # render's own pass meets the oracles, and phase 8's
                     # rays of this pass are traced again by the engine.
-                    check_pass(tag, r.scene, r.flat, rays, any_hit, hits)
+                    check_pass(ptag, r.scene, r.flat, rays, any_hit, hits,
+                               cut)
                     rays, hits = rrays, rv._tracer(*rrays, any_hit)
-                    tag += " (phase 8's rays, traced again)"
+                    ptag += " (phase 8's rays, traced again)"
                 if any_hit:
                     if not torch.equal(hits[0] >= 0, rhits[0] >= 0):
-                        raise AssertionError(f"{tag}: tri>=0 differs from "
+                        raise AssertionError(f"{ptag}: tri>=0 differs from "
                                              "the packet kernel's")
-                elif name == "packet_pipe":
-                    compare(hits, rhits, f"{tag} vs packet kernel")
+                elif name != "packet_wide":
+                    compare(hits, rhits, f"{ptag} vs packet kernel")
                 else:
-                    n = decided_by_brute_force(tag, r.scene, rays, hits,
+                    n = decided_by_brute_force(ptag, r.scene, rays, hits,
                                                rhits)
                     if n:
-                        log(f"{tag}: differs from the packet kernel on {n} "
+                        log(f"{ptag}: differs from the packet kernel on {n} "
                             "rays, each decided by brute_force_mt for "
                             "packet_wide")
                     n_dec += n
                 if pname != "primary" or mode == "primary":
-                    check_pass(tag, r.scene, r.flat, rays, any_hit, hits)
+                    check_pass(ptag, r.scene, r.flat, rays, any_hit, hits,
+                               cut)
             px = int((res.image != ref_res.image).any(axis=2).sum())
             if px > n_dec:
-                raise AssertionError(f"[11] {name} render({mode}): {px} "
+                raise AssertionError(f"{tag} {name} render({mode}): {px} "
                                      "pixels differ from the packet "
                                      f"engine's image, {n_dec} rays decided")
             decided += n_dec
-            log(f"[11] {name} render({mode}): {counts[name]} launches; "
+            log(f"{tag} {name} render({mode}): {counts[name]} launches; "
                 f"{len(passes)} passes on phase 8's rays, closest hits "
                 f"tri/t/u/v equal to the packet kernel's on every ray but "
                 f"{n_dec} decided by brute force, any hits tri>=0 equal; "
@@ -1387,26 +1435,36 @@ def phase_new_renders(r, secondary):
     return launches, renderers, decided
 
 
-def wide_slice(wt, rays, any_hit, exact):
-    """A contiguous slice of whole 32-ray packets from the middle of the
-    batch, doubled from WIDE_SLICE0 rays while the twin's time on it stays
-    within WIDE_TWIN_S (its step count sets the time: a degenerate packet
-    walks the whole tree). Returns the slice, the twin's result and work
-    on it, and the twin's seconds."""
+def grow_slice(run_twin, rays, packet, n0, budget_s):
+    """A contiguous slice of whole packets of `packet` rays from the middle
+    of the batch, doubled from n0 rays while the twin's time on it,
+    run_twin(slice) -> (result, work), stays within budget_s (its step
+    count sets the time: a packet that walks much of the tree is slow).
+    Returns the slice, the twin's result and work on it, the twin's
+    seconds and the slice's first ray."""
     R = rays[0].shape[0]
-    start = (R // 2) // WARP * WARP
-    n = WIDE_SLICE0
+    start = (R // 2) // packet * packet
+    n = n0
     while True:
         n = min(n, R - start)
         sl = [a[start:start + n] for a in rays]
-        work = work_with_reads(wt)
         t0 = time.perf_counter()
-        tw = trace_packet_wide_ref(wt, *sl, any_hit=any_hit, exact=exact,
-                                   work=work)
+        tw, work = run_twin(sl)
         secs = time.perf_counter() - t0
-        if secs * 2.5 > WIDE_TWIN_S or start + n >= R or n >= SAMPLE_RAYS:
-            return sl, tw, work, secs
+        if secs * 2.5 > budget_s or start + n >= R or n >= SAMPLE_RAYS:
+            return sl, tw, work, secs, start
         n *= 2
+
+
+def wide_slice(wt, rays, any_hit, exact):
+    """grow_slice for the wide twin: 32-ray packets, from WIDE_SLICE0 rays,
+    within WIDE_TWIN_S."""
+    def run(sl):
+        work = work_with_reads(wt)
+        return trace_packet_wide_ref(wt, *sl, any_hit=any_hit, exact=exact,
+                                     work=work), work
+
+    return grow_slice(run, rays, WARP, WIDE_SLICE0, WIDE_TWIN_S)[:4]
 
 
 def phase_wide_twins(wt, secondary, entries):
@@ -1442,8 +1500,8 @@ def phase_new_timing(tables, wt, primary, secondary, entries, full, smi):
     batches, beside the batch's bound (batch_bound over the five twins'
     work: full counts on the primary frame, phase 9's for packet, ww and
     ifif; sampled elsewhere). Then the new kernels' twins on the primary
-    frame. Returns the primary bound and the new kernels' rows for the
-    kernels line."""
+    frame. Returns the primary bound, the new kernels' rows for the
+    kernels line and the five twins' full counts on the primary frame."""
     full = {e: (tables, w, 1.0) for e, w in full.items()}
     for engine in NEW_ENGINES:
         tb = wt if engine == "packet_wide" else tables
@@ -1496,7 +1554,7 @@ def phase_new_timing(tables, wt, primary, secondary, entries, full, smi):
             + ", ".join(f"{x:.1f}" for x in t) + f"); kernel "
             f"{rows[engine]['ms']:.4f} ms on {smi}")
     torch.cuda.synchronize()
-    return bounds["primary"][:2], rows
+    return bounds["primary"][:2], rows, full
 
 
 def phase_hairball_wide_refused(hair, device):
@@ -1703,12 +1761,212 @@ def phase_screen(r, rd, batch, walk_res, ops, kw, dense_bnd, smi):
          "bound_by": dense_bnd[1], "library_ms": None}]
 
 
+# -- phase 13: the node-batch and deferred-leaf packet kernels -------------
+
+# The soup checks: (engine, knobs, (tris_per_row, nodes_per_row),
+# triangles), all on the same 65,536 random rays. A twin's time goes with
+# the steps of the packet that walks longest, and a packet of random rays
+# walks nearly the whole soup: dleaf's twin (one node a step) took 35 s a
+# call on phase 3's 5,000 triangles (NVIDIA H100 80GB HBM3, 700 W), so
+# dleaf runs on a 500-triangle soup and bdl's knob variants on a
+# 1,000-triangle one.
+BATCH_SOUP = (
+    ("packet_bfs", {}, (12, 1), 5000),
+    ("packet_bdl", {}, (12, 1), 5000),
+    ("packet_dleaf", {}, (12, 1), 500),
+    ("packet_dleaf", {}, (4, 8), 500),
+    ("packet_dleaf", {"drain_min": 1}, (12, 1), 500),
+    ("packet_dleaf", {"drain_min": 64}, (12, 1), 500),
+    ("packet_bdl", {"merge_sibs": True}, (12, 1), 1000),
+    ("packet_bdl", {"qgroup": 4}, (12, 1), 1000),
+    ("packet_bdl", {"qgroup": 4, "merge_sibs": True}, (12, 1), 1000),
+    ("packet_bdl", {"drain_min": 1}, (12, 1), 1000),
+    ("packet_bdl", {"drain_min": 64}, (12, 1), 1000),
+)
+BATCH_PACKET = 8 * WARP   # the renderer's packet: 8 warps (batch_knobs)
+BATCH_TWIN_S = 1.0        # twin seconds a phase-13 slice may grow to
+
+
+def phase_soup_batch(device):
+    """Phase 13, first check: the phase-3 soup check through each new
+    kernel (65,536 random rays; smaller soups where BATCH_SOUP says why):
+    bfs and bdl at (tris_per_row, nodes_per_row) = (12, 1) on phase 3's
+    5,000 triangles; dleaf at (12, 1) and (4, 8), and at drain_min 1 and
+    64, on 500; bdl at qgroup 1 and 4, each with and without merge_sibs,
+    and at drain_min 1 and 64, on 1,000. Closest hit bit-equal to the
+    twin and to the packet kernel on every ray, misses included; any hit
+    bit-equal to the twin (tri included); closest hits exact against
+    brute_force_mt, any-hit tri >= 0 against brute_force_anyhit."""
+    rays_np = random_rays(np.random.default_rng(2024), 65_536)
+    rays = [torch.from_numpy(a).to(device) for a in rays_np]
+    shadow = rays[:3] + [torch.full_like(rays[3], 14.0)]
+    sub = np.arange(0, 65_536, 16)
+    soups = {}
+    for n_tris in sorted({c[3] for c in BATCH_SOUP}):
+        soup = make_random_soup(n_tris=n_tris, seed=11)
+        soups[n_tris] = (
+            soup, build_accel(soup, BuildConfig(builder="binned_sah")),
+            brute_force_mt(soup, *(a[sub] for a in rays_np)),
+            brute_force_anyhit(soup, *(a[sub] for a in rays_np[:3]),
+                               np.full(len(sub), 14.0, np.float32)), {})
+    for name, kw, (tpr, npr), n_tris in BATCH_SOUP:
+        soup, flat, bf, blocked, tables = soups[n_tris]
+        if (tpr, npr) not in tables:
+            tb = tables_from_packed(
+                pack_bvh(flat, soup.tri_verts(), tris_per_row=tpr,
+                         nodes_per_row=npr), device)
+            tables[tpr, npr] = tb, trace_packet(tb, *rays)
+        tb, packet = tables[tpr, npr]
+        kernel, twin = BATCH_ENGINES[name][:2]
+        label = (f"soup {n_tris} {name} "
+                 f"{json.dumps(kw) if kw else 'defaults'} tpr={tpr} npr={npr}")
+        t0 = time.perf_counter()
+        kern = kernel(tb, *rays, **kw)
+        compare(kern, twin(tb, *rays, **kw), f"{label} vs twin")
+        compare(kern, packet, f"{label} vs packet kernel")
+        if not np.array_equal(kern[0].cpu().numpy()[sub], bf.tri):
+            raise AssertionError(f"{label}: tri differs from brute_force_mt")
+        ka = kernel(tb, *shadow, any_hit=True, **kw)
+        compare(ka, twin(tb, *shadow, any_hit=True, **kw),
+                f"{label} any-hit vs twin")
+        if not np.array_equal(ka[0].cpu().numpy()[sub] >= 0, blocked):
+            raise AssertionError(f"{label}: any-hit tri>=0 differs from "
+                                 "brute_force_anyhit")
+        log(f"[13] {label}: closest hit bit-equal to the twin and to the "
+            f"packet kernel on all 65536 rays; any hit bit-equal to the twin "
+            f"(tri included, blocked {float((ka[0] >= 0).float().mean()):.3f}"
+            f"); exact vs brute_force_mt and brute_force_anyhit on "
+            f"{len(sub)} ({time.perf_counter() - t0:.1f} s with the twins)")
+
+
+def phase_batch_twins(tables, secondary, entries):
+    """Phase 13: each new kernel bit-equal to its twin on a contiguous slice
+    of whole packets of every batch (grow_slice within BATCH_TWIN_S), any
+    hit tri included. Adds each twin's work, tables and scale to `entries`
+    (batch -> schedule -> (tables, work, scale))."""
+    batches = [("primary", secondary["shadow"][1]["primary"])] + [
+        (p, secondary[m][1][p]) for m in SECONDARY_MODES
+        for p in PASSES[m][1:]]
+    for bname, (rays, any_hit, _) in batches:
+        R = rays[0].shape[0]
+        for name, (kernel, twin, *_) in BATCH_ENGINES.items():
+            tb = tables[name]
+
+            def run(sl):
+                work = work_with_reads(tb)
+                return twin(tb, *sl, any_hit=any_hit, work=work), work
+
+            sl, tw, work, secs, start = grow_slice(
+                run, rays, BATCH_PACKET, 8 * BATCH_PACKET, BATCH_TWIN_S)
+            n = sl[0].shape[0]
+            compare(kernel(tb, *sl, any_hit=any_hit), tw,
+                    f"[13] {name} on the {bname} slice vs twin")
+            entries[bname][name] = (tb, work, R / n)
+            log(f"[13] {name} {bname}: kernel bit-equal to twin on rays "
+                f"{start}..+{n} of {R} ({-(-n // BATCH_PACKET)} packets, "
+                f"{'any' if any_hit else 'closest'} hit, tri included; twin "
+                f"{secs:.2f} s); per ray {work['node_visits'] / n:.2f} node "
+                f"visits, {work['tri_slot_tests'] / n:.2f} slot tests")
+
+
+def phase_batch_lbvh(lbvh_tables, lbvh_res, batch, width, height):
+    """Phase 13: phase 7's LBVH tables, built on the card at nodes_per_row
+    1, traced by each new kernel on phase 7's primary batch: tri/t/u/v
+    bit-equal to the packet kernel on the same tables, and tri and t equal
+    to phase 7's frame on every ray."""
+    rays = (batch.orig, batch.dirn, batch.tmin, batch.tmax)
+    order, _ = pixel_table(width, height)
+    slot = order.astype(np.int64)
+    frame_tri = torch.from_numpy(lbvh_res.hit_tri[slot]).to(rays[0].device)
+    frame_t = torch.from_numpy(lbvh_res.hit_t[slot]).to(rays[0].device)
+    want = trace_packet(lbvh_tables, *rays)
+    for name, (kernel, *_) in BATCH_ENGINES.items():
+        got = kernel(lbvh_tables, *rays)
+        compare(got, want, f"[13] {name} on the LBVH tables vs packet kernel")
+        if not (torch.equal(got[0], frame_tri)
+                and torch.equal(got[1], frame_t)):
+            raise AssertionError(f"[13] {name} on the LBVH tables: differs "
+                                 "from phase 7's frame")
+    log(f"[13] LBVH tables (built on the card, nodes_per_row "
+        f"{lbvh_tables.nodes_per_row}, {lbvh_tables.num_nodes} nodes, depth "
+        f"{lbvh_tables.max_depth}): packet_bfs, packet_dleaf and packet_bdl "
+        f"each traced phase 7's {rays[0].shape[0]} primary rays bit-equal to "
+        f"the packet kernel on the same tables and to phase 7's frame (tri "
+        f"and t)")
+
+
+def phase_batch_timing(tables, primary, secondary, entries, full, smi):
+    """Phase 13 times, CUDA events, warm, medians of 10 (3 where one call
+    takes over 2 s): each new kernel on phase 5's primary frame and the
+    shadow, AO and diffuse batches, beside the batch's bound (batch_bound
+    over all eight twins: full counts on the primary frame, slices and
+    samples elsewhere) and its own work; the new twins on the primary
+    frame (their full counts; median of 3, or one run where it takes over
+    3 s). Returns the primary bound and the rows for the kernels line."""
+    full = dict(full)
+    plain = {}
+    for name, (_, twin, *_) in BATCH_ENGINES.items():
+        tb = tables[name]
+        w = work_with_reads(tb)
+        t = cuda_ms(lambda: twin(tb, *primary, work=w), warmup=0, iters=1)
+        if t[0] <= 3_000:
+            t += cuda_ms(lambda: twin(tb, *primary), warmup=0, iters=2)
+        plain[name] = statistics.median(t)
+        full[name] = (tb, w, 1.0)
+        log(f"[13] {name} primary frame: twin "
+            + ", ".join(f"{x:.1f}" for x in t) + f" ms (median "
+            f"{plain[name]:.1f}); full count {w['node_visits']} ray node "
+            f"visits, {w['tri_slot_tests']} slot tests on {smi}")
+    batches = {"primary": (primary, False, full),
+               "shadow": secondary["shadow"][1]["shadow"][:2]
+               + (entries["shadow"],),
+               "ao": secondary["ao"][1]["ao"][:2] + (entries["ao"],),
+               "diffuse": secondary["diffuse"][1]["diffuse"][:2]
+               + (entries["diffuse"],)}
+    times, bounds = {}, {}
+    for bname, (rays, any_hit, ent) in batches.items():
+        R = rays[0].shape[0]
+        b, by, least = bounds[bname] = batch_bound(rays, ent)
+        log(f"[13] {bname} batch, {R} rays, "
+            f"{'any' if any_hit else 'closest'} hit: bound {b:.4f} ms by "
+            f"{by} (the least of the {len(ent)} twins' work, {least}'s; "
+            + ("full counts" if bname == "primary" else "sampled work")
+            + ")")
+        for name, (kernel, *_) in BATCH_ENGINES.items():
+            tb, w, scale = ent[name]
+            once = cuda_ms(lambda: kernel(tb, *rays, any_hit=any_hit),
+                           warmup=1, iters=1)[0]
+            iters = 10 if once <= 2000 else 3
+            t = cuda_ms(lambda: kernel(tb, *rays, any_hit=any_hit),
+                        warmup=0, iters=iters)
+            ms = statistics.median(t)
+            times[bname, name] = ms
+            own, _ = bound(0, (w["node_visits"] * NODE_VISIT_OPS
+                               + w["tri_slot_tests"] * MT_OPS) * scale)
+            log(f"[13] {bname} batch: {name} median {ms:.4f} ms of {iters} "
+                f"(min {min(t):.4f}, max {max(t):.4f}) = "
+                f"{R / ms / 1e3:.2f} Mrays/s, {ms / b:.1f}x the batch's "
+                f"bound; its own work {w['node_visits'] * scale:.0f} ray "
+                f"node visits, {w['tri_slot_tests'] * scale:.0f} slot tests "
+                f"({own:.4f} ms of FP32 operations); on {smi}")
+    rows = {name: {"ms": times["primary", name], "plain_ms": plain[name],
+                   "bound": bounds["primary"][:2]}
+            for name in BATCH_ENGINES}
+    torch.cuda.synchronize()
+    return bounds["primary"][:2], rows
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
                  "script needs an NVIDIA GPU")
 
     t_start = time.perf_counter()
+    marks = {}   # seconds since the start at the end of each phase
+
+    def mark(phase):
+        marks[phase] = round(time.perf_counter() - t_start, 1)
+
     info = describe("cuda")
     smi = info["nvidia_smi"].splitlines()[0]
     log("[1] " + json.dumps(info))
@@ -1722,18 +1980,22 @@ def main():
     phase_soup(device)
     r, batch, launches = phase_main_path(device)
     ms, plain_ms, err = phase_timing(r, batch, smi)
+    mark("1-5")
     rd, ca, ops, kw, dense_launches, dense_err, dense_bnd, walk_res = \
         phase_dense(r, batch)
     if min(dense_launches.values()) < 1:
         raise AssertionError(f"a dense main path launched no kernel: "
                              f"{dense_launches}")
     dense_ms = phase_dense_timing(rd, ca, batch, ops, kw, smi)
+    mark("6")
     scan_err = phase_scan_kernel(device)
     conf_dev, hair_dev, hair = phase_lbvh_builds(device, r.scene)
-    rl, lbvh_counts = phase_lbvh_frame(r, batch)
+    rl, lbvh_counts, lbvh_res = phase_lbvh_frame(r, batch)
     lbvh_ms = phase_lbvh_timing(rl, batch, conf_dev, hair_dev, smi)
     conf = lbvh_ms["conference"]
+    lbvh_tables = rl.tables   # phase 13 traces them again
     del rl, conf_dev, hair_dev
+    mark("7")
 
     secondary = phase_secondary(r, smi)
     phase_soup_variants(device)
@@ -1743,6 +2005,7 @@ def main():
         r.tables, (batch.orig, batch.dirn, batch.tmin, batch.tmax),
         secondary, works, smi)
     phase_hairball_ao(device, hair, smi)
+    mark("8-10")
 
     phase_soup_variants(device, ("packet_pipe",), "[11]")
     phase_soup_wide(device)
@@ -1756,19 +2019,40 @@ def main():
                    for e, w in {**bw, **pipe_works[b][1]}.items()}
                for b, (scale, bw) in works.items()}
     phase_wide_twins(wt, secondary, entries)
-    primary_bnd, new_rows = phase_new_timing(
+    primary_bnd, new_rows, full_counts = phase_new_timing(
         r.tables, wt, (batch.orig, batch.dirn, batch.tmin, batch.tmax),
         secondary, entries, full_counts, smi)
-    del secondary, new_r
+    del new_r
     phase_hairball_wide_refused(hair, device)
+    mark("11")
     screen_rows = phase_screen(r, rd, batch, walk_res, ops, kw, dense_bnd,
                                smi)
     del rd, ops
     if min(row["launches"] for row in screen_rows) < 1:
         raise AssertionError("a screen-space main path launched no kernel: "
                              + json.dumps(screen_rows))
+    mark("12")
 
-    log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    phase_soup_batch(device)
+    mark("13 soup")
+    batch_launches, batch_r, _ = phase_new_renders(
+        r, secondary, tuple(BATCH_ENGINES), "[13]", cut=4)
+    if min(batch_launches.values()) < 1:
+        raise AssertionError(f"a batch engine launched no kernel: "
+                             f"{batch_launches}")
+    mark("13 renders")
+    btables = {name: rv.tables for name, rv in batch_r.items()}
+    phase_batch_twins(btables, secondary, entries)
+    mark("13 slices")
+    phase_batch_lbvh(lbvh_tables, lbvh_res, batch, WIDTH, HEIGHT)
+    _, batch_rows = phase_batch_timing(
+        btables, (batch.orig, batch.dirn, batch.tmin, batch.tmax), secondary,
+        entries, full_counts, smi)
+    mark("13 lbvh, times")
+    del secondary, batch_r, lbvh_tables
+
+    log(f"[done] {time.perf_counter() - t_start:.1f} s; seconds since the "
+        f"start at the end of each phase: {json.dumps(marks)}")
     kernels = [{
         "name": "packet_trace", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches,
@@ -1800,6 +2084,14 @@ def main():
             "bound_ms": primary_bnd[0], "bound_by": primary_bnd[1],
             "library_ms": None})
     kernels += screen_rows
+    for name, row in batch_rows.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": ALL_ENGINES[name][2],
+            "replaces": ALL_ENGINES[name][3],
+            "launches": batch_launches[name], "max_abs_err": 0.0,
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound"][0], "bound_by": row["bound"][1],
+            "library_ms": None})
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

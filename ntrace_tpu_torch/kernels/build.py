@@ -51,6 +51,22 @@ SIGNATURES = {
         ctypes.c_int,
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     ),
+    # packet_bfs.cu, packet_dleaf.cu, packet_bdl.cu: the traversal
+    # arguments, then rows; drain_min; qgroup and merge_sibs
+    # (trace/packet_batch.py:launch_batch).
+    "ntrace_packet_bfs": (
+        ctypes.c_int,
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    ),
+    "ntrace_packet_dleaf": (
+        ctypes.c_int,
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    ),
+    "ntrace_packet_bdl": (
+        ctypes.c_int,
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+         _P, _P],
+    ),
     "ntrace_dense_walk": (
         ctypes.c_int,
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],

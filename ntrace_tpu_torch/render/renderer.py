@@ -26,7 +26,11 @@ tesla_persistent_packet) packs the flat tree into the 8-ary tables
 (`host.pack_wide_bvh`, 4 triangles a row, renderer.py:580-596) and traces
 them through `trace/packet_wide.py` with the conservative frustum test
 (exact=False); the reference's TPU knobs (packet rows, interleave, VMEM
-limit, light and stats outputs) have no counterpart.
+limit, light and stats outputs) have no counterpart. "packet_bfs",
+"packet_dleaf" and "packet_bdl" trace the packed tables (bfs and bdl
+packed at nodes_per_row=1) through `trace/packet_bfs.py`,
+`packet_dleaf.py` and `packet_bdl.py`, with the knobs of `batch_knobs`
+(packet rows, drain_min, qgroup, merge_sibs).
 "cpu_golden" runs the host golden tracer. engine="binraster_dense" arms
 the dense engine (`trace/binraster_dense.py`, kernel "walk", "dma" or
 "visits") and engine="binraster" the v1 engine (`trace/binraster.py`,
@@ -38,8 +42,8 @@ the packet kernel alone, and seed_secondary and stage_secondary "auto"
 mean off. builder="lbvh" with engine "auto" or
 "packet" and no `flat` takes the packed-direct path on every device: the
 tables are built on the renderer's device (bvh/lbvh.py:build_lbvh_packed)
-and traced in place, and `self.flat` is None; with packet_ww,
-packet_ifif, packet_pipe or packet_wide it takes the flat route
+and traced in place, and `self.flat` is None; with any other engine it
+takes the flat route
 (build_lbvh_flat, then the host pack), as the reference does. Secondary
 rays draw their random numbers from `ray/rng.py`, bit-equal to the
 reference's jax.random. Other modes,
@@ -70,6 +74,9 @@ from ntrace_tpu_torch.tables import (tables_from_device, tables_from_packed,
 from ntrace_tpu_torch.trace import binraster as br
 from ntrace_tpu_torch.trace import binraster_dense as bd
 from ntrace_tpu_torch.trace.packet import trace_packet
+from ntrace_tpu_torch.trace.packet_bdl import trace_packet_bdl
+from ntrace_tpu_torch.trace.packet_bfs import trace_packet_bfs
+from ntrace_tpu_torch.trace.packet_dleaf import trace_packet_dleaf
 from ntrace_tpu_torch.trace.packet_ifif import trace_packet_ifif
 from ntrace_tpu_torch.trace.packet_pipe import trace_packet_pipe
 from ntrace_tpu_torch.trace.packet_wide import trace_packet_wide
@@ -80,7 +87,13 @@ PACKET_ENGINES = ("auto", "wavefront", "packet")
 # Engines that trace the packed tables, by the name the renderer keeps.
 TABLE_TRACERS = {"packet": trace_packet, "packet_ww": trace_packet_ww,
                  "packet_ifif": trace_packet_ifif,
-                 "packet_pipe": trace_packet_pipe}
+                 "packet_pipe": trace_packet_pipe,
+                 "packet_bfs": trace_packet_bfs,
+                 "packet_dleaf": trace_packet_dleaf,
+                 "packet_bdl": trace_packet_bdl}
+# The node-batch engines load one node record a row (the reference renderer
+# packs them at nodes_per_row=1, renderer.py:622-626).
+ONE_NODE_A_ROW = ("packet_bfs", "packet_bdl")
 # The 8-wide packet engine traces its own tables (host.pack_wide_bvh at 4
 # triangles a row, as the reference renderer packs them), with the
 # conservative frustum test.
@@ -91,8 +104,6 @@ UNPORTED_ENGINES = {
     "stack2": "queue 1, item 2: the stack2 engine",
     "bvh8": "queue 1, item 10: other engines",
     "kdtree": "queue 1, item 10: other engines",
-    **{e: "queue 2: the rest of the packet family"
-       for e in ("packet_bfs", "packet_dleaf", "packet_bdl")},
 }
 MODES = ("primary", "shadow", "ao", "diffuse", "path")
 # The dense engine's settings: the reference renderer's code defaults for
@@ -122,6 +133,27 @@ class RenderResult:
     hit_tri: np.ndarray      # (H*W,) int32 primary hits (pixel order)
     hit_t: np.ndarray        # (H*W,) float32
     stats: dict = field(default_factory=dict)
+
+
+def batch_knobs(engine: str, cfg: RenderConfig) -> dict:
+    """The node-batch and deferred-leaf engines' knobs, as the reference's
+    `_packet_family_tracer` (renderer.py:90-139) passes them: packet rows
+    from cfg.packet_rows, clamped as there (bfs at least 8, dleaf 8 to 32,
+    bdl 8 to 64) and then to 32, the port's most warps a packet (a ray row
+    is a warp here, a block holds 1,024 threads); drain_min 0 (one per
+    queue); bdl's cfg.merge_sibs and cfg.qgroup, qgroup 1 where it does not
+    divide the rows. Empty for every other engine."""
+    rows = max(cfg.packet_rows, 8)
+    if engine == "packet_bfs":
+        return {"rows": min(rows, 32)}
+    if engine == "packet_dleaf":
+        return {"rows": min(rows, 32), "drain_min": 0}
+    if engine == "packet_bdl":
+        rows = min(rows, 64, 32)
+        qgroup = cfg.qgroup if rows % cfg.qgroup == 0 else 1
+        return {"rows": rows, "drain_min": 0, "qgroup": qgroup,
+                "merge_sibs": bool(cfg.merge_sibs)}
+    return {}
 
 
 def build_accel(scene: Scene, cfg: BuildConfig = BuildConfig(), *,
@@ -286,13 +318,17 @@ class Renderer:
         if self.engine in TABLE_TRACERS:
             if not direct:
                 _, _, tpr, npr = pick_layout(self.flat)
+                if self.engine in ONE_NODE_A_ROW:
+                    npr = 1
                 self.packed = pack_bvh(self.flat, scene.tri_verts(),
                                        tris_per_row=tpr, nodes_per_row=npr)
                 self.tables = tables_from_packed(self.packed, self.device)
             trace = TABLE_TRACERS[self.engine]
+            knobs = batch_knobs(self.engine, cfg)
 
             def tracer(o, d, tn, tx, any_hit):
-                return trace(self.tables, o, d, tn, tx, any_hit=any_hit)
+                return trace(self.tables, o, d, tn, tx, any_hit=any_hit,
+                             **knobs)
         elif self.engine == "packet_wide":
             self.packed = pack_wide_bvh(self.flat, scene.tri_verts(),
                                         tris_per_row=WIDE_TRIS_PER_ROW)

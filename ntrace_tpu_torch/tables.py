@@ -78,6 +78,28 @@ class PackedTables:
         cnt = torch.where(rec[:, 12:14] < 0, rec[:, 14:16], 0.0)
         return int(cnt.max()) if cnt.numel() else 0
 
+    @cached_property
+    def max_depth(self) -> int:
+        """The depth of the deepest internal node, the root at 0: the
+        node-batch kernels' stack bound (trace/packet_batch.py) rests on
+        it. Pointer jumping over the parent links, ceil(log2(nodes)) + 1
+        rounds, on the tables' device (one host read)."""
+        n = self.num_nodes
+        if n <= 1:
+            return 0
+        npr, dev = self.nodes_per_row, self.device
+        rec = self.nodes8[:, :npr * NODE_LANES].reshape(-1, NODE_LANES)[:n]
+        enc = rec[:, 12:14].to(torch.int64)
+        node = torch.arange(n, device=dev)
+        anc = node.clone()
+        inner = (enc >= 0) & (enc < n)
+        anc[enc[inner]] = node[:, None].expand(-1, 2)[inner]
+        dist = (anc != node).to(torch.int64)
+        for _ in range(int(n - 1).bit_length() + 1):
+            dist = dist + dist[anc]
+            anc = anc[anc]
+        return int(dist.max())
+
 
 def _check_layout(npr: int, tpr: int):
     if not 1 <= npr * NODE_LANES <= 128 or not 1 <= tpr * TRI_LANES <= 128:

@@ -6,7 +6,8 @@ traversal kernels. Every expression keeps the reference's operation order;
 `csrc/trace_common.cuh` repeats the same order in CUDA C++, so twins and
 kernels agree bit for bit. `fetch_nodes`, `visit_nodes` and `accept_row`
 are the steps every twin shares: decode node records, slab-test both
-children, and fold one triangle row into the running hit; `RayState`,
+children, and fold one triangle row into the running hit (`fold_hits`
+folds many candidates at once, order-free, for the packet twins); `RayState`,
 `start_twin` and `retire` are the lockstep state the twins share, and
 `tally` their count of work. `check_rays`, `hit_outputs` and
 `launch_traversal` are the wrappers' side: one signature for the kernels
@@ -199,6 +200,28 @@ def accept_row(trow: torch.Tensor, o, d, tn, tpr: int, ht, hid, hu, hv):
     acc = (bid != INT_MAX) & ((bt < ht) | ((bt == ht) & (bid < hid)))
     return (torch.where(acc, bt, ht), torch.where(acc, bid, hid),
             torch.where(acc, bu, hu), torch.where(acc, bv, hv))
+
+
+def fold_hits(ht, hid, hu, hv, ray, t_c, id_c, u_c, v_c):
+    """Fold candidate hits into running hits, in place. ht, hid, hu, hv are
+    1-D, one entry a ray; candidate i (t_c[i], id_c[i], u_c[i], v_c[i], all
+    valid) belongs to ray ray[i]. Each ray keeps the lexicographic (t, id)
+    minimum of its hit and its candidates, with that candidate's u, v; a
+    tie with its hit keeps the hit, as the kernels' strict test does. The
+    result does not depend on the candidates' order (equal (t, id) pairs
+    are one triangle, so their u, v agree)."""
+    t0, id0 = ht.clone(), hid.clone()
+    ht.scatter_reduce_(0, ray, t_c, "amin")
+    best_id = torch.where(ht == t0, id0, INT_MAX)
+    at_t = t_c == ht[ray]
+    best_id.scatter_reduce_(0, ray[at_t], id_c[at_t], "amin")
+    win = at_t & (id_c == best_id[ray])
+    changed = (ht != t0) | (best_id != id0)
+    for h, c in ((hu, u_c), (hv, v_c)):
+        new = h.clone()
+        new[ray[win]] = c[win]
+        h.copy_(torch.where(changed, new, h))
+    hid.copy_(best_id)
 
 
 class RayState:

@@ -61,8 +61,9 @@ from ntrace_tpu_torch.trace.packet_common import (INF, INT_MAX, MAX_STEPS,
                                                   RUN_ROWS, SLAB_EPS,
                                                   SLAB_HI, SLAB_LO,
                                                   STACK_DEPTH,
-                                                  check_rays, hit_outputs,
-                                                  mt_row_best, run_rows,
+                                                  check_rays, fold_hits,
+                                                  hit_outputs, mt_row_best,
+                                                  run_rows,
                                                   slab_child, start_work,
                                                   tally)
 
@@ -422,27 +423,13 @@ def _leaf_loop(s: _Packets, p, tables: WideTables, any_hit: bool, work):
         tally(work, rows[:0], rows, 0)
         work["tri_slot_tests"] += int(n_live[pk].sum()) * tpr
     # The fold: each live ray's lexicographic (t, id) minimum over its hit
-    # and the rows tested (a tie with its hit keeps the hit, as the
-    # kernel's strict test does).
+    # and the rows tested.
     lane = torch.arange(WARP, device=p.device)
     fold = live[pk] & (bid != INT_MAX)
-    flat = (pk[:, None] * WARP + lane)[fold]
-    t_c, id_c, u_c, v_c = bt[fold], bid[fold], bu[fold], bv[fold]
-    t0, id0 = ht0.reshape(-1), hid0.reshape(-1)
-    best_t = t0.clone()
-    best_t.scatter_reduce_(0, flat, t_c, "amin")
-    best_id = torch.where(best_t == t0, id0, INT_MAX)
-    at_t = t_c == best_t[flat]
-    best_id.scatter_reduce_(0, flat[at_t], id_c[at_t], "amin")
-    win = at_t & (id_c == best_id[flat])
-    hu, hv = s.hu[p].reshape(-1), s.hv[p].reshape(-1)
-    changed = (best_t != t0) | (best_id != id0)
-    hu[flat[win]] = u_c[win]       # equal (t, id): the same triangle, u, v
-    hv[flat[win]] = v_c[win]
-    s.ht[p] = best_t.view(-1, WARP)
-    s.hid[p] = best_id.view(-1, WARP)
-    s.hu[p] = torch.where(changed, hu, s.hu[p].reshape(-1)).view(-1, WARP)
-    s.hv[p] = torch.where(changed, hv, s.hv[p].reshape(-1)).view(-1, WARP)
+    hits = [x[p].reshape(-1) for x in (s.ht, s.hid, s.hu, s.hv)]
+    fold_hits(*hits, (pk[:, None] * WARP + lane)[fold], bt[fold], bid[fold],
+              bu[fold], bv[fold])
+    s.ht[p], s.hid[p], s.hu[p], s.hv[p] = (x.view(-1, WARP) for x in hits)
     s.qn[p] = 0
     done = cut
     if any_hit:

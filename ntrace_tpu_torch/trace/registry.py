@@ -10,7 +10,10 @@ raises NotImplementedError, naming the ROADMAP item, for an engine it does
 not have yet. packet_ww, packet_ifif and packet_wide are the CUDA kernels
 of the schedules their names stand for (csrc/packet_ww.cu,
 csrc/packet_ifif.cu, csrc/packet_wide.cu: Aila and Laine's packet kernel);
-packet_pipe is csrc/packet_pipe.cu.
+packet_pipe is csrc/packet_pipe.cu. The native names packet_bfs,
+packet_dleaf and packet_bdl are NTrace's node-batch, deferred-leaf and
+combined packet kernels (csrc/packet_bfs.cu, packet_dleaf.cu,
+packet_bdl.cu on csrc/packet_batch.cuh).
 """
 
 from __future__ import annotations

@@ -51,6 +51,10 @@ PORT_MODULES = (
     "ntrace_tpu_torch.trace.packet_ifif",
     "ntrace_tpu_torch.trace.packet_pipe",
     "ntrace_tpu_torch.trace.packet_wide",
+    "ntrace_tpu_torch.trace.packet_batch",
+    "ntrace_tpu_torch.trace.packet_bfs",
+    "ntrace_tpu_torch.trace.packet_dleaf",
+    "ntrace_tpu_torch.trace.packet_bdl",
     "ntrace_tpu_torch.trace.registry",
     "ntrace_tpu_torch.trace.binraster",
     "ntrace_tpu_torch.trace.binraster_dense",

@@ -227,6 +227,9 @@ def test_library_path_keyed_by_sources():
     assert [p.name for p in kbuild.sources()] == ["binraster_trace.cu",
                                                   "dense_trace.cu",
                                                   "dense_visits.cu",
+                                                  "packet_bdl.cu",
+                                                  "packet_bfs.cu",
+                                                  "packet_dleaf.cu",
                                                   "packet_ifif.cu",
                                                   "packet_pipe.cu",
                                                   "packet_trace.cu",

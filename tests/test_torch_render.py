@@ -166,7 +166,7 @@ def test_trace_batched_retries_only_on_oom():
     (dict(mode="textured"), "texture"),
     (dict(engine="stack2"), "not ported"),
     (dict(seed_primary="on"), "seeded primary"),
-    (dict(engine="packet_bfs"), "packet family"),
+    (dict(engine="bvh8"), "not ported"),
     (dict(mode="diffuse", seed_secondary="on"), "item 15"),
 ])
 def test_unported_paths_raise(soup_small, kw, match):
