@@ -114,6 +114,29 @@ Phases, each printed as it completes:
      the three on the primary, shadow, AO and diffuse batches beside the
      bound over all eight twins and their own work, and the twins on the
      primary frame
+ 14. the exact byte-plane gather (csrc/gather.cu): the reference's test
+     cases (tests/test_gather.py shapes, skewed and repeated indices, a
+     table holding inf, -inf, -0.0, NaN, 1e-38 and 255.5), the kernel
+     bit-equal as int32 to its plain version and to table[idx]; then
+     GatherTable at two real sizes, its launches counted: (a) the
+     shading fetch, phase 4's Woop table at the Woop row of each of phase
+     8's diffuse hits, and (b) phase 4's node table at 1,048,576 uniform
+     random rows; each timed beside its bound (bytes: the indices, each
+     table row touched once, the rows written), the plain version and
+     the fastest of torch.index_select and tab[idx]
+ 15. BASELINE config #3 (scripts/benchmark_matrix.py:54-55): fairy at
+     170,000 triangles, builder="hlbvh" (max_leaf_size 32, sah_tri_cost
+     0.02, 9 top bits), 1024x768, engine auto. The forest sweep on the
+     card (bvh/lbvh.py:lbvh_device, its cummins through csrc/row_scan.cu)
+     bit-equal to the same sweep on the CPU (Woop rows within
+     WOOP_ULPS), at least 2 clusters and the splice taken (no fallback),
+     the tree checked; Renderer(builder="hlbvh") then render() of diffuse
+     and AO, row-scan and packet launches counted, every pass through
+     check_pass; the primary frame against the binned-SAH tree's, every
+     difference decided by brute_force_mt; times of the build (device
+     sweep, host top tree and splice, host pack and upload), of each
+     render's stages and of the packet kernel on each pass beside its
+     bound
 Then one JSON line of per-kernel results (with each kernel's bound from
 this run's work), the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises and the script
@@ -136,7 +159,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from ntrace_tpu_torch.bvh import lbvh
+from ntrace_tpu_torch.bvh import hlbvh, lbvh
 from ntrace_tpu_torch.device import describe
 from ntrace_tpu_torch.host import (BuildConfig, RenderConfig,
                                    brute_force_anyhit, brute_force_mt,
@@ -145,10 +168,13 @@ from ntrace_tpu_torch.host import (BuildConfig, RenderConfig,
                                    pack_bvh, pack_wide_bvh, trace_cpu_golden)
 from ntrace_tpu_torch.host.bvh.sbvh import sbvh_impl_tag
 from ntrace_tpu_torch.kernels.build import build
+from ntrace_tpu_torch.ops.gather import (GatherTable, paged_gather_bytes,
+                                         paged_gather_bytes_ref)
 from ntrace_tpu_torch.ops.pscan import OPS, row_scan_i32, row_scan_i32_ref
 from ntrace_tpu_torch.ray import raygen
 from ntrace_tpu_torch.ray.pixeltable import pixel_table
-from ntrace_tpu_torch.render.renderer import Renderer, build_accel
+from ntrace_tpu_torch.render.renderer import (Renderer, build_accel,
+                                              pick_layout)
 from ntrace_tpu_torch.tables import (WideTables, tables_from_packed,
                                      tables_from_wide)
 from ntrace_tpu_torch.trace import binraster as br
@@ -162,7 +188,8 @@ from ntrace_tpu_torch.trace.packet_dleaf import (trace_packet_dleaf,
                                                  trace_packet_dleaf_ref)
 from ntrace_tpu_torch.trace.packet_ifif import (trace_packet_ifif,
                                                 trace_packet_ifif_ref)
-from ntrace_tpu_torch.trace.packet_common import read_bytes, work_with_reads
+from ntrace_tpu_torch.trace.packet_common import (STACK_DEPTH, read_bytes,
+                                                  work_with_reads)
 from ntrace_tpu_torch.trace.packet_pipe import (trace_packet_pipe,
                                                 trace_packet_pipe_ref)
 from ntrace_tpu_torch.trace.packet_wide import (WARP, trace_packet_wide,
@@ -957,11 +984,13 @@ def reset_counts():
     for kernel, *_ in ALL_ENGINES.values():
         kernel.launches = 0
     row_scan_i32.launches = 0
+    paged_gather_bytes.launches = 0
 
 
 def launch_counts() -> dict:
     return {**{name: e[0].launches for name, e in ALL_ENGINES.items()},
-            "row_scan": row_scan_i32.launches}
+            "row_scan": row_scan_i32.launches,
+            "gather": paged_gather_bytes.launches}
 
 
 @contextmanager
@@ -1956,6 +1985,397 @@ def phase_batch_timing(tables, primary, secondary, entries, full, smi):
     return bounds["primary"][:2], rows
 
 
+# -- phase 14: the exact byte-plane gather ----------------------------------
+
+GATHER_SOURCE = "ntrace_tpu_torch/csrc/gather.cu"
+GATHER_REPLACES = "ntrace_tpu/ops/gather.py:45"
+# The reference's test cases, tests/test_gather.py:30-34: (rows, columns,
+# requests, page, tile).
+GATHER_CASES = ((1000, 16, 2048, 256, 256), (100, 12, 513, 128, 128),
+                (65536, 16, 4096, 512, 512))
+GATHER_SPECIAL = (np.inf, -np.inf, -0.0, np.nan, 1e-38, 255.5)
+GATHER_RANDOM_ROWS = 1 << 20     # gather (b): uniform random requests
+
+
+def gather_table(rng, n, c):
+    """A standard-normal (n, c) f32 table whose first and last words hold
+    GATHER_SPECIAL, and one NaN with a payload of its own."""
+    t = rng.standard_normal((n, c)).astype(np.float32)
+    flat = t.reshape(-1)
+    flat[:len(GATHER_SPECIAL)] = GATHER_SPECIAL
+    flat[-len(GATHER_SPECIAL):] = GATHER_SPECIAL
+    flat[len(GATHER_SPECIAL)] = np.array([0x7FC01234],
+                                         np.int32).view(np.float32)[0]
+    return t
+
+
+def phase_gather_cases(device):
+    """Phase 14, first check: the reference's test cases (its three shapes,
+    then skewed and repeated indices on a 512 x 8 table at page and tile
+    128) through GatherTable on the card, bit-equal as int32 to the plain
+    version on the same padded inputs and to table[idx]. Returns the max
+    abs error, 0.0."""
+    rng = np.random.default_rng(14)
+    skew = np.concatenate([np.zeros(200, np.int32),
+                           np.full(200, 511, np.int32),
+                           rng.integers(0, 128, 112).astype(np.int32)])
+    cases = [(n, c, page, tile, rng.integers(0, n, q).astype(np.int32))
+             for n, c, q, page, tile in GATHER_CASES]
+    cases.append((512, 8, 128, 128, skew))
+    for n, c, page, tile, idx in cases:
+        table = gather_table(rng, n, c)
+        idx[:2] = [0, n - 1]     # the rows that hold the special values
+        gt = GatherTable(table, page=page, tile=tile, device=device)
+        got = gt(torch.from_numpy(idx).to(device))
+        want = table[idx].view(np.int32)
+        if not np.array_equal(got.cpu().numpy().view(np.int32), want):
+            raise AssertionError(f"gather {(n, c, len(idx), page, tile)}: "
+                                 "differs from table[idx]")
+        qp = -(-len(idx) // tile) * tile
+        pidx = torch.zeros(qp, dtype=torch.int32, device=device)
+        pidx[:len(idx)] = torch.from_numpy(idx).to(device)
+        kw = dict(n_rows=n, c=c, page=page, tile=tile)
+        if not _bit_equal(paged_gather_bytes(gt.bytes, pidx, **kw),
+                          paged_gather_bytes_ref(gt.bytes, pidx, **kw)):
+            raise AssertionError(f"gather {(n, c, qp, page, tile)}: kernel "
+                                 "differs from its plain version")
+    log(f"[14] gather: kernel bit-equal (int32) to paged_gather_bytes_ref "
+        f"and to table[idx] in {len(cases)} cases: {GATHER_CASES} and "
+        "skewed/repeated indices (512, 8, 512, 128, 128); tables holding "
+        "inf, -inf, -0.0, NaN (two payloads), 1e-38 and 255.5")
+    return 0.0
+
+
+def gather_inputs(flat, diffuse_hits, device):
+    """The two real gathers' (table, idx) on the card: (a) the Woop table
+    at the Woop row of each diffuse ray's hit triangle (the inverse of
+    flat.tri_index; a miss takes row 0), (b) the node table at
+    GATHER_RANDOM_ROWS uniform random rows."""
+    ti = torch.from_numpy(flat.tri_index).to(device)
+    rows = torch.arange(ti.shape[0], dtype=torch.int32, device=device)
+    inv = torch.zeros(flat.num_tris, dtype=torch.int32, device=device)
+    inv[ti[ti >= 0].long()] = rows[ti >= 0]
+    tri = diffuse_hits[0]
+    idx_a = torch.where(tri >= 0, inv[tri.clamp(min=0).long()], 0)
+    nodes = torch.from_numpy(flat.nodes).to(device)
+    idx_b = torch.from_numpy(np.random.default_rng(15).integers(
+        0, nodes.shape[0], GATHER_RANDOM_ROWS).astype(np.int32)).to(device)
+    woop = torch.from_numpy(np.ascontiguousarray(flat.woop)).to(device)
+    return {"a": (woop, idx_a.to(torch.int32).contiguous()),
+            "b": (nodes, idx_b)}
+
+
+def phase_gather(inputs):
+    """Phase 14, the gather's main path: GatherTable built and called on
+    each real gather, the launch count set to 0 just before and read just
+    after; each result bit-equal to table[idx] (torch indexing on the
+    card). Returns the launches and the GatherTables."""
+    paged_gather_bytes.launches = 0
+    tables = {k: GatherTable(tab, device=tab.device)
+              for k, (tab, _) in inputs.items()}
+    outs = {k: tables[k](idx) for k, (_, idx) in inputs.items()}
+    launches = paged_gather_bytes.launches
+    if launches != len(inputs):
+        raise AssertionError(f"the gathers launched {launches} kernels, "
+                             f"want {len(inputs)}")
+    for k, (tab, idx) in inputs.items():
+        if not _bit_equal(outs[k], tab[idx.long()]):
+            raise AssertionError(f"gather ({k}) differs from table[idx]")
+        log(f"[14] gather ({k}): {idx.shape[0]} rows of a "
+            f"{tuple(tab.shape)} table, bit-equal to table[idx]")
+    return launches, tables
+
+
+def gather_bytes(idx: torch.Tensor, c: int):
+    """(bytes, rows): the least bytes one gather of idx from a C-column
+    f32 table moves through HBM: the indices (4Q), each table row that idx
+    touches once (the `rows` unique rows of this run's idx, 4C bytes each,
+    no more than the 4CQ a row a request would read) and the rows written
+    (4CQ)."""
+    q = idx.shape[0]
+    rows = int(torch.unique(idx).numel())
+    return 4 * q + min(4 * c * q, 4 * c * rows) + 4 * c * q, rows
+
+
+def phase_gather_timing(inputs, tables, smi):
+    """Phase 14 times, CUDA events, warm, medians of 10: GatherTable's call,
+    the plain version and four single PyTorch calls of the same function
+    (index_select and indexing, each with the int32 indices and with
+    int64 copies made before the clock starts), beside the bound of
+    gather_bytes over the HBM rate. library_ms is the fastest of the four.
+    """
+    rows = {}
+    for k, (tab, idx) in inputs.items():
+        gt = tables[k]
+        q, c = idx.shape[0], gt.c
+        kw = dict(n_rows=gt.n_rows, c=c, page=gt.page, tile=gt.tile)
+        qp = -(-q // gt.tile) * gt.tile
+        pidx = torch.cat([idx, idx.new_zeros((qp - q,))])
+        idx64 = idx.long()
+        library = {
+            "index_select i32": lambda: torch.index_select(tab, 0, idx),
+            "index_select i64": lambda: torch.index_select(tab, 0, idx64),
+            "tab[idx] i32": lambda: tab[idx],
+            "tab[idx] i64": lambda: tab[idx64]}
+        t = {}
+        for name, fn in (
+                ("kernel", lambda: gt(idx)),
+                ("plain", lambda: paged_gather_bytes_ref(gt.bytes, pidx,
+                                                         **kw)),
+                *library.items()):
+            times = cuda_ms(fn, warmup=2, iters=10)
+            t[name] = statistics.median(times)
+            log(f"[14] gather ({k}) {name}: median {t[name]:.4f} ms of 10 "
+                f"(min {min(times):.4f}, max {max(times):.4f}) on {smi}")
+        lib = min(library, key=t.get)
+        nb, touched = gather_bytes(idx, c)
+        b, by = bound(nb, 0)
+        log(f"[14] gather ({k}): Q {q}, C {c}, {touched} unique rows: "
+            f"bound {b:.4f} ms by {by} ({nb / 1e6:.1f} MB at 3.35 TB/s); "
+            f"kernel "
+            f"{t['kernel'] / b:.2f}x the bound, {t['kernel'] / t[lib]:.2f}x "
+            f"the fastest library call ({lib}, {t[lib]:.4f} ms)")
+        rows[k] = {"ms": t["kernel"], "plain_ms": t["plain"],
+                   "library_ms": t[lib], "bound": (b, by)}
+    torch.cuda.synchronize()
+    return rows
+
+
+# -- phase 15: BASELINE config #3, fairy with the HLBVH build ----------------
+
+FAIRY_TRIS = 170_000          # get_scene("fairy") -> 169,808 tris
+HLBVH_CFG = BuildConfig(builder="hlbvh", max_leaf_size=32, sah_tri_cost=0.02)
+FAIRY_SAH_CFG = BuildConfig(builder="binned_sah", max_leaf_size=32,
+                            sah_tri_cost=0.02)
+WOOP_ULPS = 64                # as tests/test_torch_lbvh.py
+FOREST_KEYS = ("order", "cluster_ids", "cluster_roots", "node_count",
+               "leaf_count", "n_clusters", "tri_index", "nodes")
+
+
+def woop_ulps(ref: torch.Tensor, got: torch.Tensor) -> float:
+    """The largest |ref - got| in ulp of each row's largest |ref|."""
+    ref, got = ref.cpu().double(), got.cpu().double()
+    scale = ref.abs().amax(dim=1, keepdim=True).clamp(min=1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(scale)) - 23)
+    return float(((ref - got).abs() / ulp).max()) if ref.numel() else 0.0
+
+
+def check_flat_tree(tag, flat, n):
+    """A FlatBVH is a tree rooted at node 0 (every other node named once
+    by an internal link) and its leaves hold every triangle once."""
+    enc = np.ascontiguousarray(flat.nodes[:, 12:14]).view(np.int32)
+    nn = flat.nodes.shape[0]
+    inner = enc[enc >= 0]
+    counts = np.bincount(inner, minlength=nn)
+    if inner.max(initial=0) >= nn or counts[0] or (counts[1:] != 1).any():
+        raise AssertionError(f"{tag}: the links do not form a tree")
+    ids = np.sort(flat.tri_index[flat.tri_index >= 0])
+    if not np.array_equal(ids, np.arange(n)):
+        raise AssertionError(f"{tag}: triangle ids are not each in one leaf")
+    log(f"{tag} structure: {nn} nodes, root 0, every other node named "
+        f"once; all {n} triangle ids once each")
+
+
+def phase_hlbvh_build(device, scene):
+    """Phase 15, the build: the forest sweep on the card, bit-equal to the
+    same sweep on the CPU (the Woop rows within WOOP_ULPS); the forest
+    path taken (at least 2 clusters, internal nodes, and the splice: every
+    top leaf holds one box); the spliced tree checked. Returns the sweep's
+    row-scan launches and the FlatBVH."""
+    reset_counts()
+    out = hlbvh.forest_sweep(scene, HLBVH_CFG, device)
+    scans = row_scan_i32.launches
+    ncl, nc = int(out["n_clusters"]), int(out["node_count"])
+    if ncl < 2 or nc == 0:
+        raise AssertionError(f"HLBVH: {ncl} clusters, {nc} forest nodes: the "
+                             "build fell back to the plain LBVH")
+    t0 = time.perf_counter()
+    cpu = hlbvh.forest_sweep(scene, HLBVH_CFG, "cpu")
+    cpu_s = time.perf_counter() - t0
+    bad = [k for k in FOREST_KEYS if not _bit_equal(out[k], cpu[k])]
+    if bad:
+        raise AssertionError(f"HLBVH forest: the card's sweep differs from "
+                             f"the CPU's in {bad}")
+    ulps = woop_ulps(cpu["woop"], out["woop"])
+    if ulps > WOOP_ULPS:
+        raise AssertionError(f"HLBVH forest: Woop rows {ulps} ulp apart")
+    log(f"[15] forest sweep ({scene.num_tris} tris, cluster_shift "
+        f"{hlbvh.cluster_shift(HLBVH_CFG)}): {ncl} clusters, {nc} forest "
+        f"nodes, {int(out['leaf_count'])} leaves, {scans} row_scan launches; "
+        f"card bit-equal to the CPU sweep ({cpu_s:.1f} s) in "
+        f"{', '.join(FOREST_KEYS)}; Woop rows "
+        + ("bit-equal" if _bit_equal(out["woop"], cpu["woop"])
+           else f"within {ulps:.1f} ulp"))
+    flat = hlbvh.splice_forest(scene, HLBVH_CFG, out)
+    if flat is None:
+        raise AssertionError("HLBVH: a top leaf holds more than one box; "
+                             "the build fell back to the plain LBVH")
+    log(f"[15] splice: {flat.nodes.shape[0] - nc} top nodes over {ncl} "
+        "cluster leaves of one box each, then the forest's")
+    check_flat_tree("[15]", flat, scene.num_tris)
+    return scans, flat
+
+
+def phase_fairy(device, n_tris=FAIRY_TRIS, width=WIDTH, height=HEIGHT):
+    """Phase 15: BASELINE config #3. The build checks, then the main path
+    with every count set to 0 just before and read just after:
+    Renderer(builder="hlbvh") builds on the card, render(diffuse) and
+    render(ao) trace through the packet kernel; every pass through
+    check_pass; the primary frame against the binned-SAH tree's. Returns
+    the renderer and its passes by mode."""
+    t0 = time.perf_counter()
+    scene = get_scene("fairy", n_tris=n_tris)
+    log(f"[15] scene fairy: {scene.num_tris} tris in "
+        f"{time.perf_counter() - t0:.1f} s")
+    scans, flat = phase_hlbvh_build(device, scene)
+    camera = default_camera("fairy")
+
+    reset_counts()
+    rh = Renderer(scene, HLBVH_CFG, RenderConfig(width=width, height=height),
+                  device=device)
+    passes = {}
+    for mode in ("diffuse", "ao"):
+        with recorded(rh) as got:
+            res = rh.render(camera, mode)
+        passes[mode] = (res, got)
+    counts = launch_counts()
+    if counts["row_scan"] != scans or counts["packet"] != 4 or any(
+            counts[k] for k in ALL_ENGINES if k != "packet"):
+        raise AssertionError(f"config #3 launches {counts}: want one "
+                             f"build's {scans} row-scan launches and 4 "
+                             "packet launches")
+    if not _bit_equal(torch.from_numpy(rh.flat.nodes),
+                      torch.from_numpy(flat.nodes)):
+        raise AssertionError("Renderer's HLBVH tree differs from the build "
+                             "checked above")
+    depth = rh.tables.max_depth
+    if depth >= STACK_DEPTH:
+        raise AssertionError(f"HLBVH tables {depth} deep; the packet stack "
+                             f"holds {STACK_DEPTH}")
+    log(f"[15] Renderer(builder='hlbvh'): counts "
+        + json.dumps({k: v for k, v in counts.items() if v})
+        + f", tables {rh.tables.num_nodes} nodes, max_depth {depth} (stack "
+        f"{STACK_DEPTH}), layout tpr={rh.tables.tris_per_row} "
+        f"npr={rh.tables.nodes_per_row}, build {rh.timer.ms()['build']:.1f}"
+        " ms")
+    for mode, (res, got) in passes.items():
+        check_image(f"[15] render({mode})", res.image, width, height)
+        if len(got) != 2:
+            raise AssertionError(f"render({mode}) traced {len(got)} passes")
+        log(f"[15] render({mode}): image mean {res.image.mean():.4f}, "
+            "stages " + json.dumps({k: round(v, 3)
+                                    for k, v in res.stats.items()}))
+        names = ("primary", mode)
+        for name, (rays, any_hit, hits) in zip(names, got):
+            if name == "primary" and mode == "ao":
+                continue   # the same primary rays as diffuse's
+            check_pass(f"[15] {mode} pass {name}", scene, rh.flat, rays,
+                       any_hit, hits)
+    phase_fairy_builders(rh, scene, camera, width, height)
+    return rh, {m: dict(zip(("primary", m), got))
+                for m, (_, got) in passes.items()}
+
+
+def phase_fairy_builders(rh, scene, camera, width, height):
+    """Phase 15: the fairy primary frame through the HLBVH tree and through
+    the binned-SAH tree (the matrix's supplementary row,
+    scripts/benchmark_matrix.py:65), tri compared on every ray;
+    brute_force_mt decides each difference, and must side with HLBVH."""
+    rs = Renderer(scene, FAIRY_SAH_CFG, RenderConfig(width=width,
+                                                    height=height),
+                  flat=build_accel(scene, FAIRY_SAH_CFG), device=rh.device)
+    hl, sah = rh.render(camera), rs.render(camera)
+    order, _ = pixel_table(width, height)
+    slot = order.astype(np.int64)
+    tri_h, tri_s = hl.hit_tri[slot], sah.hit_tri[slot]
+    diff = np.nonzero(tri_h != tri_s)[0]
+    if len(diff):
+        batch = raygen.primary(raygen.camera_arrays(camera, width, height,
+                                                    rh.device),
+                               width, height, torch.from_numpy(order.copy()))
+        host = [a.cpu().numpy()[diff] for a in (batch.orig, batch.dirn,
+                                                batch.tmin, batch.tmax)]
+        bf = brute_force_mt(scene, *host)
+        wrong = int((tri_h[diff] != bf.tri).sum())
+        if wrong:
+            raise AssertionError(f"HLBVH vs binned-SAH fairy frame: "
+                                 f"brute_force_mt sides against HLBVH on "
+                                 f"{wrong} of {len(diff)} rays")
+    log(f"[15] HLBVH vs binned-SAH fairy frame on all {len(slot)} rays: tri "
+        f"differs on {len(diff)}"
+        + (", each decided by brute_force_mt for HLBVH" if len(diff) else "")
+        + f"; hit rate {(tri_h >= 0).mean():.4f}")
+
+
+def phase_fairy_timing(rh, passes, smi):
+    """Phase 15 times: the build in its parts (inputs to the card; the
+    forest sweep, CUDA events, median of 10; the host top tree and splice
+    and the host pack and upload, host clock, median of 5), and the packet
+    kernel on each pass's batch (CUDA events, warm, median of 10), bit-
+    equal to its twin on a stride sample whose work gives the bound."""
+    scene, dev, n = rh.scene, rh.device, rh.scene.num_tris
+
+    def host_ms(fn, iters=5):
+        times = []
+        for _ in range(iters):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    args = lbvh.device_inputs(scene, dev)
+    parts = {"inputs": host_ms(lambda: lbvh.device_inputs(scene, dev))}
+    sweep = cuda_ms(lambda: lbvh.lbvh_device(
+        *args, max_leaf=HLBVH_CFG.max_leaf_size,
+        cluster_shift=hlbvh.cluster_shift(HLBVH_CFG)), warmup=1, iters=10)
+    parts["sweep"] = statistics.median(sweep)
+    out = hlbvh.forest_sweep(scene, HLBVH_CFG, dev)
+    parts["splice"] = host_ms(lambda: hlbvh.splice_forest(scene, HLBVH_CFG,
+                                                          out))
+    _, _, tpr, npr = pick_layout(rh.flat)
+    parts["pack"] = host_ms(lambda: tables_from_packed(pack_bvh(
+        rh.flat, scene.tri_verts(), tris_per_row=tpr, nodes_per_row=npr),
+        dev))
+    parts["build_accel"] = host_ms(lambda: build_accel(scene, HLBVH_CFG,
+                                                       device=dev), iters=3)
+    log("[15] HLBVH build (ms, ms/Mtri): " + "; ".join(
+        f"{k} {v:.3f} ({v / (n / 1e6):.3f})" for k, v in parts.items())
+        + f" (sweep min {min(sweep):.3f}, max {max(sweep):.3f}); on {smi}")
+    profile_once("[15] profile of one warm forest sweep",
+                 lambda: lbvh.lbvh_device(
+                     *args, max_leaf=HLBVH_CFG.max_leaf_size,
+                     cluster_shift=hlbvh.cluster_shift(HLBVH_CFG)), smi,
+                 top=6)
+
+    times = {}
+    batches = [("primary", passes["diffuse"]["primary"])] + [
+        (m, passes[m][m]) for m in ("diffuse", "ao")]
+    for bname, (rays, any_hit, _) in batches:
+        R = rays[0].shape[0]
+        sample, scale = stride_sample(rays)
+        work = work_with_reads(rh.tables)
+        tw = trace_packet_ref(rh.tables, *sample, any_hit=any_hit,
+                              work=work)
+        compare(trace_packet(rh.tables, *sample, any_hit=any_hit), tw,
+                f"[15] packet on the {bname} sample vs twin")
+        b, by, _ = batch_bound(rays, {"packet": (rh.tables, work, scale)})
+        t = cuda_ms(lambda: trace_packet(rh.tables, *rays, any_hit=any_hit),
+                    warmup=2, iters=10)
+        ms = times[bname] = statistics.median(t)
+        log(f"[15] {bname} batch, {R} rays, "
+            f"{'any' if any_hit else 'closest'} hit: packet kernel median "
+            f"{ms:.4f} ms of 10 (min {min(t):.4f}, max {max(t):.4f}) = "
+            f"{R / ms / 1e3:.2f} Mrays/s; bound {b:.4f} ms by {by} (the "
+            f"twin's work on a {len(sample[0])}-ray stride sample, bit-equal "
+            f"to the kernel: {work['node_visits'] / len(sample[0]):.2f} node "
+            f"visits, {work['tri_slot_tests'] / len(sample[0]):.2f} slot "
+            f"tests a ray), {ms / b:.1f}x; on {smi}")
+    torch.cuda.synchronize()
+    return parts, times
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -2049,7 +2469,21 @@ def main():
         btables, (batch.orig, batch.dirn, batch.tmin, batch.tmax), secondary,
         entries, full_counts, smi)
     mark("13 lbvh, times")
-    del secondary, batch_r, lbvh_tables
+    del batch_r, lbvh_tables
+
+    gather_err = phase_gather_cases(device)
+    ginputs = gather_inputs(r.flat, secondary["diffuse"][1]["diffuse"][2],
+                            device)
+    gather_launches, gtables = phase_gather(ginputs)
+    gather_rows = phase_gather_timing(ginputs, gtables, smi)
+    del secondary, ginputs, gtables
+    mark("14")
+
+    rh, fairy_passes = phase_fairy(device)
+    mark("15 checks")
+    phase_fairy_timing(rh, fairy_passes, smi)
+    del rh, fairy_passes
+    mark("15 times")
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s; seconds since the "
         f"start at the end of each phase: {json.dumps(marks)}")
@@ -2092,6 +2526,13 @@ def main():
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound"][0], "bound_by": row["bound"][1],
             "library_ms": None})
+    ga = gather_rows["a"]
+    kernels.append({
+        "name": "paged_gather", "route": "cuda", "source": GATHER_SOURCE,
+        "replaces": GATHER_REPLACES, "launches": gather_launches,
+        "max_abs_err": gather_err, "ms": ga["ms"],
+        "plain_ms": ga["plain_ms"], "bound_ms": ga["bound"][0],
+        "bound_by": ga["bound"][1], "library_ms": ga["library_ms"]})
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,11 @@
 """LBVH: the Morton-code BVH built on the device, in torch.
 
-Counterpart of ntrace_tpu/bvh/lbvh.py: `_device_woopify` (58-85),
-`lbvh_device_fast` (345-859, emit="packed" and "flat"), `build_lbvh_packed`
-(862-904) and `build_lbvh_flat` (907-963). The tree is the reference's to
-the bit:
+Counterpart of ntrace_tpu/bvh/lbvh.py: `_mset` (43), `_device_woopify`
+(58-85), `lbvh_device` (87-340, the 30-level radix-trie sweep with its
+forest mode, which HLBVH builds on: bvh/hlbvh.py), `lbvh_device_fast`
+(345-859, emit="packed" and "flat"), `build_lbvh_packed` (862-904) and
+`build_lbvh_flat` (907-963). The tree of `lbvh_device_fast` is the
+reference's to the bit:
   - Morton codes of the triangle centroids, sorted with the triangle index
     as the tie break (`morton_sort`);
   - the binary radix tree over the boundaries of the sorted codes, through
@@ -33,7 +35,13 @@ Where torch differs from lax, the port keeps the reference's result:
     which selects the same values as the reference's position-major copy
     and its level-group fold;
   - the 31-way select chains are one gather on the class index.
-In the flat emission the Woop rows are f32 cross products written out as
+`lbvh_device` keeps the reference's sweep level by level: a Python loop
+over the 30 levels for the fori_loop, its reverse position-key cummins
+through `row_scan_i32` on (1, n) views (2 launches a level, 61 a build,
+62 in forest mode), its unique-target scatters as index writes and its
+mode="drop" scatters through `_set_drop`; all of its outputs but the Woop
+rows are bit-equal to the reference's.
+In both flat emissions the Woop rows are f32 cross products written out as
 separate multiplies and subtractions; XLA on the CPU contracts them into
 fused multiply-adds, so the rows agree with the JAX build within a few ulp
 (tests/test_torch_lbvh.py states the bound), and every other output is
@@ -41,9 +49,8 @@ bit-equal.
 
 Not ported: the `_ablate` probes (ROADMAP queue 1, item 15), the
 NTRACE_LBVH_PLACE "scatter" and "pair4" placements (recorded negatives on
-the TPU; only "gather" is ported), the NTRACE_ANSV switch (a CUDA tensor
-always takes the kernel) and `lbvh_device`, the 30-level sweep that HLBVH
-needs (ROADMAP queue 1, item 9).
+the TPU; only "gather" is ported) and the NTRACE_ANSV switch (a CUDA
+tensor always takes the kernel).
 """
 
 from __future__ import annotations
@@ -187,6 +194,222 @@ def ansv(D: torch.Tensor, scan=row_scan_i32):
     return nsl, nsr
 
 
+def _mset(arr: torch.Tensor, idx: torch.Tensor, val, mask: torch.Tensor):
+    """arr[idx] = val where mask, the other updates dropped (the
+    reference's _mset); live targets are distinct."""
+    return _set_drop(arr, torch.where(mask, idx, arr.shape[0]), val)
+
+
+def _next_min(key: torch.Tensor) -> torch.Tensor:
+    """Reverse inclusive cummin of an int32 row (lax.cummin reverse=True),
+    through the row-scan kernel on a (1, n) view."""
+    return row_scan_i32(key.reshape(1, -1), op="min", reverse=True)[0]
+
+
+def _next_boundary(boundary: torch.Tensor, iota: torch.Tensor):
+    """The next segment start after each row (n when there is none)."""
+    n = boundary.shape[0]
+    bkey = torch.where(boundary, iota, n)
+    return _next_min(torch.cat([bkey[1:], bkey.new_full((1,), n)]))
+
+
+def _range_table(slo: torch.Tensor, shi: torch.Tensor):
+    """The sparse range-min table over the sorted boxes, (L * 6 * n,) as
+    (level, lane, row) of [lo, -hi], and its top level logn."""
+    n = slo.shape[0]
+    levels = [torch.cat([slo.t(), -shi.t()], dim=0)]
+    logn = max(int(np.ceil(np.log2(max(n, 2)))), 1)
+    for k in range(1, logn + 1):
+        half = 1 << (k - 1)
+        prev = levels[-1]
+        pad = torch.full((6, min(half, n)), np.inf, dtype=torch.float32,
+                         device=slo.device)
+        levels.append(torch.minimum(
+            prev, torch.cat([prev[:, half:], pad], dim=1)))
+    return torch.stack(levels).reshape(-1), logn
+
+
+def lbvh_device(tri_lo, tri_hi, tri_verts, scene_lo, scene_hi,
+                max_leaf: int = 4, cluster_shift: int = 0) -> dict:
+    """A flattened LBVH, or with cluster_shift > 0 an LBVH forest for
+    HLBVH, on the tensors' device: the reference's 30-level radix-trie sweep.
+
+    tri_lo/tri_hi: (n, 3) f32 triangle boxes; tri_verts: (n, 3, 3) f32;
+    scene_lo/scene_hi: (3,) f32. Each level splits every open segment
+    whose current Morton bit changes inside it; a segment stops at
+    max_leaf triangles or when the bits run out. cluster_shift=k > 0:
+    rows whose (code >> k) differ start separate root segments (the HLBVH
+    treelets); cluster_roots reports each cluster's subtree root in the
+    final child encoding (>= 0 a node, < 0 ~woop offset of a leaf).
+    Returns the reference's dict: nodes (n-1, 16) f32, woop (2n, 12) f32,
+    tri_index (2n,) int32, node_count, leaf_count, cluster_roots (n,),
+    cluster_ids (n,), order (n,) and n_clusters (0-d int32 tensors for the
+    counts). Rows past the counts are zeros or sentinels, unreferenced.
+    The reverse cummins go through ops/pscan.py:row_scan_i32.
+    Builds call it in forest mode (bvh/hlbvh.py); cluster_shift=0, a plain
+    LBVH beside lbvh_device_fast, is kept for the parity tests against the
+    reference.
+    """
+    n = tri_lo.shape[0]
+    dev = tri_lo.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    codes, order, slo, shi, tv_s = morton_sort(tri_lo, tri_hi, tri_verts,
+                                               scene_lo, scene_hi)
+    iota = _i32(n, dev)
+    ncap = max(n - 1, 1)
+    yes = torch.ones((n,), dtype=torch.bool, device=dev)
+
+    if cluster_shift > 0:
+        top = codes >> cluster_shift
+        boundary = top != torch.cat([top[:1] - 1, top[:-1]])
+        ordinal = _cumsum(boundary) - 1
+        parent_slot = torch.where(boundary, -(ordinal + 2), -1)
+    else:
+        boundary = iota == 0
+        ordinal = torch.zeros((n,), **i32)
+        parent_slot = torch.full((n,), -1, **i32)
+    terminal = torch.zeros((n,), dtype=torch.bool, device=dev)
+    children = torch.zeros((2 * ncap,), **i32)     # (ncap, 2) flattened
+    cluster_roots = torch.zeros((n,), **i32)
+    rng_s = torch.zeros((ncap,), **i32)
+    rng_p = torch.zeros((ncap,), **i32)
+    rng_e = torch.zeros((ncap,), **i32)
+    leaf_first = torch.zeros((n,), **i32)
+    leaf_count = torch.zeros((n,), **i32)
+    node_next = torch.zeros((), **i32)
+    leaf_next = torch.zeros((), **i32)
+
+    if cluster_shift > 0:
+        # Clusters at or below the leaf limit are leaves from the start.
+        cnt0 = _next_boundary(boundary, iota) - iota
+        pre = boundary & (cnt0 <= max_leaf)
+        psum = _cumsum(pre)
+        pidx = psum - 1
+        leaf_first = _mset(leaf_first, pidx, iota, pre)
+        leaf_count = _mset(leaf_count, pidx, cnt0, pre)
+        terminal = _mset(terminal, iota, yes, pre)
+        cluster_roots = _mset(cluster_roots, ordinal, ~pidx, pre)
+        leaf_next = psum[-1]
+
+    for level in range(30):
+        bits = (codes >> (29 - level)) & 1
+        change = (bits != torch.cat([bits[:1], bits[:-1]])) & ~boundary
+        change[0] = False
+        e = _next_boundary(boundary, iota)
+        p = _next_min(torch.where(change, iota, n))
+        split = boundary & ~terminal & (p < e)
+
+        # One internal node per splitting segment.
+        alloc = _cumsum(split)
+        node_idx = node_next + alloc - 1
+
+        # Link to the parent, or mark a cluster root (ps <= -2: the root
+        # segment of cluster -ps - 2).
+        ps = parent_slot
+        children = _mset(children, ps, node_idx, split & (ps >= 0))
+        cluster_roots = _mset(cluster_roots, -ps - 2, node_idx,
+                              split & (ps <= -2))
+        rng_s = _mset(rng_s, node_idx, iota, split)
+        rng_p = _mset(rng_p, node_idx, p, split)
+        rng_e = _mset(rng_e, node_idx, e, split)
+
+        left_n = p - iota
+        right_n = e - p
+        lleaf = split & (left_n <= max_leaf)
+        rleaf = split & (right_n <= max_leaf)
+        lsum = _cumsum(lleaf)
+        lidx = leaf_next + lsum - 1
+        rsum = _cumsum(rleaf)
+        ridx = leaf_next + lsum[-1] + rsum - 1
+        leaf_first = _mset(leaf_first, lidx, iota, lleaf)
+        leaf_count = _mset(leaf_count, lidx, left_n, lleaf)
+        leaf_first = _mset(leaf_first, ridx, p, rleaf)
+        leaf_count = _mset(leaf_count, ridx, right_n, rleaf)
+        children = _mset(children, node_idx * 2, ~lidx, lleaf)
+        children = _mset(children, node_idx * 2 + 1, ~ridx, rleaf)
+
+        # Children that are not leaves become segments of the next level.
+        parent_slot = _mset(parent_slot, iota, node_idx * 2, split & ~lleaf)
+        parent_slot = _mset(parent_slot, p, node_idx * 2 + 1, split & ~rleaf)
+        terminal = _mset(terminal, iota, yes, lleaf)
+        terminal = _mset(terminal, p, yes, rleaf)
+        boundary = _mset(boundary, p, yes, split)
+        node_next = node_next + alloc[-1]
+        leaf_next = leaf_next + lsum[-1] + rsum[-1]
+
+    # Segments left open (duplicate codes, bits exhausted) become leaves.
+    nb = _next_boundary(boundary, iota)
+    open_seg = boundary & ~terminal
+    resid_p = open_seg & (parent_slot >= 0)
+    resid_m = open_seg & (parent_slot <= -2)
+    rsum = _cumsum(resid_p | resid_m)
+    ridx = leaf_next + rsum - 1
+    leaf_first = _mset(leaf_first, ridx, iota, resid_p | resid_m)
+    leaf_count = _mset(leaf_count, ridx, nb - iota, resid_p | resid_m)
+    children = _mset(children, parent_slot, ~ridx, resid_p)
+    cluster_roots = _mset(cluster_roots, -parent_slot - 2, ~ridx, resid_m)
+    leaf_next = leaf_next + rsum[-1]
+
+    # Child boxes from the sparse table: two reads per child.
+    table, logn = _range_table(slo, shi)
+    lanes6 = torch.arange(6, device=dev)
+
+    def range_bounds(a, b):
+        """min over sorted rows [a, b): (lo (m, 3), hi (m, 3))."""
+        k = torch.clamp(31 - clz32(torch.clamp(b - a, min=1)), max=logn)
+        k6 = k.long()[:, None] * 6 + lanes6
+
+        def row(pos):
+            return table[k6 * n + pos.long()[:, None]]
+
+        m = torch.minimum(row(a), row(torch.maximum(
+            b - (torch.ones_like(k) << k), a)))
+        return m[:, 0:3], -m[:, 3:6]
+
+    lo0, hi0 = range_bounds(rng_s, rng_p)
+    lo1, hi1 = range_bounds(rng_p, rng_e)
+
+    # Woop offsets of the leaves and the final child encoding.
+    is_leaf_slot = iota < leaf_next
+    leaf_start_row = _mset(torch.zeros((n,), dtype=torch.bool, device=dev),
+                           leaf_first, yes, is_leaf_slot)
+    runs_incl = _cumsum(leaf_start_row)
+    woop_off_leaf = leaf_first + runs_incl[leaf_first.long()] - 1
+    children = children.reshape(ncap, 2)
+    is_leaf_child = children < 0
+    leaf_ids = torch.where(is_leaf_child, ~children, 0).long()
+    enc = torch.where(is_leaf_child, ~woop_off_leaf[leaf_ids], children)
+
+    cols = [lo0[:, 0], hi0[:, 0], lo0[:, 1], hi0[:, 1],
+            lo1[:, 0], hi1[:, 0], lo1[:, 1], hi1[:, 1],
+            lo0[:, 2], hi0[:, 2], lo1[:, 2], hi1[:, 2],
+            enc[:, 0].contiguous().view(torch.float32),
+            enc[:, 1].contiguous().view(torch.float32)]
+    zero = torch.zeros((ncap,), dtype=torch.float32, device=dev)
+    nodes = torch.stack(cols + [zero, zero], dim=1)
+    nodes = torch.where((_i32(ncap, dev) < node_next)[:, None], nodes, 0.0)
+
+    # Woop rows in sorted order, a leaf-end sentinel after each leaf run.
+    wcap = 2 * n
+    dst = iota + runs_incl - 1
+    woop = _set_drop(torch.zeros((wcap, 12), dtype=torch.float32,
+                                 device=dev), dst, device_woopify(tv_s))
+    sent = _mset(torch.zeros((wcap,), dtype=torch.bool, device=dev),
+                 woop_off_leaf + leaf_count, yes, is_leaf_slot)
+    woop[:, 0] = torch.where(sent, _LEAF_END, woop[:, 0])
+    tri_index = _set_drop(torch.full((wcap,), -1, **i32), dst, order)
+
+    cr_leaf = cluster_roots < 0
+    cr_final = torch.where(
+        cr_leaf,
+        ~woop_off_leaf[torch.where(cr_leaf, ~cluster_roots, 0).long()],
+        cluster_roots)
+    return dict(nodes=nodes, woop=woop, tri_index=tri_index,
+                node_count=node_next, leaf_count=leaf_next,
+                cluster_roots=cr_final, cluster_ids=ordinal, order=order,
+                n_clusters=ordinal[-1] + 1)
+
+
 def lbvh_device_fast(tri_lo, tri_hi, tri_verts, scene_lo, scene_hi,
                      max_leaf: int = 4, compact_cap: int | None = None,
                      emit: str = "flat", tpr: int = 12, npr: int = 1):
@@ -246,19 +469,7 @@ def lbvh_device_fast(tri_lo, tri_hi, tri_verts, scene_lo, scene_hi,
     lleaf = pks <= a      # no kept boundary strictly inside (a, i)
     rleaf = nks >= b      # no kept boundary strictly inside (i, b)
 
-    # Sparse range-min table over the sorted boxes, (L, 6, n): lo, -hi.
-    level0 = torch.cat([slo.t(), -shi.t()], dim=0)
-    logn = max(int(np.ceil(np.log2(max(n, 2)))), 1)
-    L = logn + 1
-    levels = [level0]
-    for k in range(1, L):
-        half = 1 << (k - 1)
-        prev = levels[-1]
-        pad = torch.full((6, min(half, n)), np.inf, **f32)
-        levels.append(torch.minimum(
-            prev, torch.cat([prev[:, half:], pad], dim=1)))
-    table = torch.stack(levels).reshape(-1)
-    del levels
+    table, logn = _range_table(slo, shi)
     lanes6 = torch.arange(6, device=dev)
 
     def probe(k, pos):

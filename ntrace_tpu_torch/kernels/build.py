@@ -83,6 +83,10 @@ SIGNATURES = {
         ctypes.c_int,
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     ),
+    "ntrace_gather_bytes": (
+        ctypes.c_int, [_P, _P, _P, ctypes.c_longlong, _I, ctypes.c_longlong,
+                       _P],
+    ),
     "ntrace_row_scan_tile": (ctypes.c_int, []),
     "ntrace_row_scan_i32": (
         ctypes.c_int,

@@ -44,7 +44,11 @@ mean off. builder="lbvh" with engine "auto" or
 tables are built on the renderer's device (bvh/lbvh.py:build_lbvh_packed)
 and traced in place, and `self.flat` is None; with any other engine it
 takes the flat route
-(build_lbvh_flat, then the host pack), as the reference does. Secondary
+(build_lbvh_flat, then the host pack), as the reference does.
+builder="hlbvh" builds its forest on the renderer's device and its top
+tree on the host (bvh/hlbvh.py:build_hlbvh_flat), and every engine packs
+that FlatBVH on the host: the reference's packed-direct path is for lbvh
+only (ntrace_tpu/render/renderer.py:417-420). Secondary
 rays draw their random numbers from `ray/rng.py`, bit-equal to the
 reference's jax.random. Other modes,
 engines, builders and options raise NotImplementedError and name the
@@ -60,6 +64,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ntrace_tpu_torch.bvh.hlbvh import build_hlbvh_flat
 from ntrace_tpu_torch.bvh.lbvh import build_lbvh_flat, build_lbvh_packed
 from ntrace_tpu_torch.host import (BuildConfig, Camera, FlatBVH, RenderConfig,
                                    Scene, build_median_bvh, build_sbvh,
@@ -159,8 +164,8 @@ def batch_knobs(engine: str, cfg: RenderConfig) -> dict:
 def build_accel(scene: Scene, cfg: BuildConfig = BuildConfig(), *,
                 device="cuda") -> FlatBVH:
     """BVH build with the reference's builders; no accel cache. The host
-    builders ignore `device`; "lbvh" builds on it and returns a host
-    FlatBVH."""
+    builders ignore `device`; "lbvh" and "hlbvh" build on it and return a
+    host FlatBVH."""
     if cfg.builder in ("median", "golden"):
         return flatten_bvh(build_median_bvh(scene, cfg), scene)
     if cfg.builder in ("sbvh", "binned_sah"):
@@ -168,9 +173,7 @@ def build_accel(scene: Scene, cfg: BuildConfig = BuildConfig(), *,
     if cfg.builder == "lbvh":
         return build_lbvh_flat(scene, cfg, device=device)
     if cfg.builder == "hlbvh":
-        raise NotImplementedError(
-            "builder 'hlbvh' is not ported yet (ROADMAP queue 1, item 9: "
-            "HLBVH, lbvh_device and build_hlbvh_flat)")
+        return build_hlbvh_flat(scene, cfg, device=device)
     if cfg.builder == "kdtree":
         raise NotImplementedError(
             "builder 'kdtree' is not ported yet (ROADMAP queue 1, item 10: "

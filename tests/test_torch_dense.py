@@ -481,6 +481,7 @@ def test_c_entry_points_match_ctypes_signatures():
     assert [p.name for p in kbuild.sources()] == ["binraster_trace.cu",
                                                   "dense_trace.cu",
                                                   "dense_visits.cu",
+                                                  "gather.cu",
                                                   "packet_bdl.cu",
                                                   "packet_bfs.cu",
                                                   "packet_dleaf.cu",

@@ -36,7 +36,9 @@ PORT_MODULES = (
     "ntrace_tpu_torch.host.native",
     "ntrace_tpu_torch.host.native.sbvh_lib",
     "ntrace_tpu_torch.bvh.lbvh",
+    "ntrace_tpu_torch.bvh.hlbvh",
     "ntrace_tpu_torch.ops.pscan",
+    "ntrace_tpu_torch.ops.gather",
     "ntrace_tpu_torch.tables",
     "ntrace_tpu_torch.kernels.build",
     "ntrace_tpu_torch.ops.aabb",

@@ -373,8 +373,8 @@ def test_other_engines_take_the_flat_route():
                                               engine="wavefront"),
                  device="cpu")
     assert r.flat is not None and r.engine == "packet"
-    with pytest.raises(NotImplementedError, match="hlbvh"):
-        build_accel(scene, host.BuildConfig(builder="hlbvh"), device="cpu")
+    with pytest.raises(NotImplementedError, match="kdtree"):
+        build_accel(scene, host.BuildConfig(builder="kdtree"), device="cpu")
 
 
 # --- on the card ----------------------------------------------------------

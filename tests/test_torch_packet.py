@@ -227,6 +227,7 @@ def test_library_path_keyed_by_sources():
     assert [p.name for p in kbuild.sources()] == ["binraster_trace.cu",
                                                   "dense_trace.cu",
                                                   "dense_visits.cu",
+                                                  "gather.cu",
                                                   "packet_bdl.cu",
                                                   "packet_bfs.cu",
                                                   "packet_dleaf.cu",

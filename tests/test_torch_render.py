@@ -15,6 +15,7 @@ from ntrace_tpu.core import BuildConfig, RenderConfig
 from ntrace_tpu.render.renderer import Renderer as JaxRenderer
 from ntrace_tpu.scenes import default_camera, get_scene, make_random_soup
 from ntrace_tpu.trace.cpu import golden_mismatches, trace_cpu_golden
+from ntrace_tpu_torch.host import FlatBVH
 from ntrace_tpu_torch.ray import raygen
 from ntrace_tpu_torch.ray.pixeltable import pixel_table
 from ntrace_tpu_torch.ray.raybatch import RayBatch
@@ -211,7 +212,16 @@ def test_render_binraster_matches_jax(monkeypatch):
 
 @pytest.mark.parametrize("builder", ["hlbvh", "kdtree"])
 def test_unported_builders_raise(builder):
-    """A builder not ported yet raises and names its ROADMAP item."""
+    """A builder not ported yet raises and names its ROADMAP item; hlbvh,
+    ported since, builds on the device it is given (a 500-triangle soup on
+    the CPU: a host FlatBVH whose leaves hold every triangle once)."""
+    if builder == "hlbvh":
+        soup = make_random_soup(n_tris=500, seed=1)
+        flat = build_accel(soup, BuildConfig(builder=builder), device="cpu")
+        assert type(flat) is FlatBVH and flat.num_tris == 500
+        ids = flat.tri_index[flat.tri_index >= 0]
+        np.testing.assert_array_equal(np.sort(ids), np.arange(500))
+        return
     soup = make_random_soup(n_tris=50, seed=1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_accel(soup, BuildConfig(builder=builder))
