@@ -80,9 +80,12 @@ Phases, each printed as it completes:
      packet_wide: but rays brute_force_mt decides for it), any hits on
      tri >= 0, images bit-equal (but one pixel per decided ray); pipe
      bit-equal to its twin on the 65,536-ray samples, wide on a
-     contiguous slice of whole packets sized by its twin's time; times of
-     packet, pipe and wide (both exact modes) on the primary, shadow, AO
-     and diffuse batches beside one bound per batch over the five twins;
+     contiguous slice of whole packets sized by its twin's time (both
+     exact modes, each mode's work logged); times of packet, pipe and
+     wide (both exact modes, one warp a packet and a persistent-warps
+     build of the same source, whose hits must be equal) on the primary,
+     shadow, AO and diffuse batches beside one bound per batch over the
+     five twins; wide's registers and shared memory from ptxas;
      the hairball's wide tables refused (2**19 triangle rows); the count of
      rays decided by brute force (0 expected: the slab test is
      conservative)
@@ -148,11 +151,15 @@ builders and CPU oracles are the port's own copies (ntrace_tpu_torch.host).
 Run from the repository root: python3 chip_smoke.py
 """
 
+import ctypes
 import json
+import os
+import re
 import statistics
+import subprocess
 import sys
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 import numpy as np
 import torch
@@ -167,6 +174,7 @@ from ntrace_tpu_torch.host import (BuildConfig, RenderConfig,
                                    golden_mismatches, make_random_soup,
                                    pack_bvh, pack_wide_bvh, trace_cpu_golden)
 from ntrace_tpu_torch.host.bvh.sbvh import sbvh_impl_tag
+from ntrace_tpu_torch.kernels import build as kbuild
 from ntrace_tpu_torch.kernels.build import build
 from ntrace_tpu_torch.ops.gather import (GatherTable, paged_gather_bytes,
                                          paged_gather_bytes_ref)
@@ -1303,6 +1311,92 @@ def phase_hairball_ao(device, hair, smi, width=WIDTH, height=HEIGHT):
 
 WIDE_TWIN_S = 6.0     # twin seconds a wide slice may grow to, per batch
 WIDE_SLICE0 = 64 * WARP
+# csrc/packet_wide.cu made persistent, for phase 11's one-warp-a-packet
+# against persistent timing: as many warps as stay resident, each taking
+# the next packet from a global counter zeroed before the launch.
+PERSISTENT_PATCH = (
+    ("template <bool kAnyHit, bool kExact>\n__global__ void",
+     "__device__ int g_next_packet;\n\n"
+     "template <bool kAnyHit, bool kExact>\n__global__ void"),
+    ("""    const int pk = blockIdx.x * kWarps + w;
+    if (pk * kWarp >= n_rays) return;   // the whole warp is past the end
+    trace_one_packet<kAnyHit, kExact>(
+        s_warp[w], lane, pk, nodes, tris, orig, dirn, tmin, tmax, n_rays,
+        n_nodes, n_tri_rows, tpr, out_tri, out_t, out_u, out_v);
+""", """    for (;;) {
+        int pk = 0;
+        if (lane == 0) pk = atomicAdd(&g_next_packet, 1);
+        pk = __shfl_sync(kFull, pk, 0);
+        if (pk * kWarp >= n_rays) break;
+        trace_one_packet<kAnyHit, kExact>(
+            s_warp[w], lane, pk, nodes, tris, orig, dirn, tmin, tmax,
+            n_rays, n_nodes, n_tri_rows, tpr, out_tri, out_t, out_u, out_v);
+    }
+"""),
+    ("    const int grid = (n_rays + kBlock - 1) / kBlock;\n",
+     """    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBlock, 0);
+    const int blocks = (n_rays + kBlock - 1) / kBlock;
+    const int grid = blocks < sms * per_sm ? blocks : sms * per_sm;
+    void* next = nullptr;
+    cudaGetSymbolAddress(&next, g_next_packet);
+    cudaMemsetAsync(next, 0, sizeof(int), s);
+"""))
+
+
+def persistent_library():
+    """csrc/packet_wide.cu built again with PERSISTENT_PATCH (each text
+    must occur once), with kernels/build.py's flags, into the ignored build
+    directory; its ntrace_packet_wide bound as build.library() binds it.
+    Returns the library, nvcc's seconds and its ptxas report."""
+    src = (kbuild.CSRC_DIR / "packet_wide.cu").read_text()
+    for old, new in PERSISTENT_PATCH:
+        if src.count(old) != 1:
+            raise AssertionError(f"packet_wide.cu: {old!r} occurs "
+                                 f"{src.count(old)} times, not once")
+        src = src.replace(old, new)
+    out = kbuild.BUILD_DIR / "persistent"
+    out.mkdir(parents=True, exist_ok=True)
+    cu = out / "packet_wide_persistent.cu"
+    cu.write_text(src)
+    so = out / f"libpacket_wide_persistent.{os.getpid()}.so"
+    t0 = time.perf_counter()
+    done = subprocess.run([kbuild.nvcc(), *kbuild.NVCC_FLAGS, "-I",
+                           str(kbuild.CSRC_DIR), "-shared", "-o", str(so),
+                           str(cu)], capture_output=True, text=True,
+                          timeout=600)
+    if done.returncode:
+        raise RuntimeError(f"nvcc failed ({done.returncode}):\n"
+                           f"{done.stdout}{done.stderr}")
+    lib = ctypes.CDLL(str(so))
+    fn = lib.ntrace_packet_wide
+    fn.restype, fn.argtypes = kbuild.SIGNATURES["ntrace_packet_wide"]
+    return lib, time.perf_counter() - t0, done.stdout + done.stderr
+
+
+@contextmanager
+def kernel_library(lib):
+    """The wrappers launch from `lib` inside the block."""
+    saved = kbuild._lib
+    kbuild._lib = lib
+    try:
+        yield
+    finally:
+        kbuild._lib = saved
+
+
+def wide_ptxas(log: str) -> str:
+    """ptxas's registers and shared memory of each packet_wide_kernel
+    instantiation, from the build log ([2])."""
+    out = []
+    for m in re.finditer(r"Compiling entry function '\w*packet_wide_kernel"
+                         r"ILb(\d)ELb(\d)E\w*'.*?Used (\d+) registers"
+                         r"[^\n]*?(\d+) bytes smem", log, re.DOTALL):
+        out.append(f"any_hit={m.group(1)} exact={m.group(2)}: "
+                   f"{m.group(3)} registers, {m.group(4)} bytes smem")
+    return "; ".join(out) or "not in this build's log (library reused)"
 
 
 def phase_soup_wide(device):
@@ -1522,10 +1616,13 @@ def phase_wide_twins(wt, secondary, entries):
                 f"ray {work['tri_slot_tests'] / n:.2f} slot tests")
 
 
-def phase_new_timing(tables, wt, primary, secondary, entries, full, smi):
-    """Phase 11 times, CUDA events, warm, medians of 10 (3 where one call
-    takes over 2 s): packet, packet_pipe and packet_wide (exact False and
-    True) on phase 5's primary frame and the shadow, AO and diffuse
+def phase_new_timing(tables, wt, primary, secondary, entries, full, smi,
+                     persistent):
+    """Phase 11 times, CUDA events, warm, medians of 10 calls: packet,
+    packet_pipe and packet_wide (exact False and True; each also from
+    `persistent`, the persistent-warps build, whose hits must equal the
+    kernel's on every ray; the two builds in turns, A B B A, medians of
+    20) on phase 5's primary frame and the shadow, AO and diffuse
     batches, beside the batch's bound (batch_bound over the five twins'
     work: full counts on the primary frame, phase 9's for packet, ww and
     ifif; sampled elsewhere). Then the new kernels' twins on the primary
@@ -1546,12 +1643,20 @@ def phase_new_timing(tables, wt, primary, secondary, entries, full, smi):
                "ao": secondary["ao"][1]["ao"][:2] + (entries["ao"],),
                "diffuse": secondary["diffuse"][1]["diffuse"][:2]
                + (entries["diffuse"],)}
+
+    def wide(exact, lib=None):
+        def run(r, a):
+            with kernel_library(lib) if lib else nullcontext():
+                return trace_packet_wide(wt, *r, any_hit=a, exact=exact)
+        return run
+
     runs = {"packet": lambda r, a: trace_packet(tables, *r, any_hit=a),
             "packet_pipe": lambda r, a: trace_packet_pipe(tables, *r,
                                                           any_hit=a),
-            "packet_wide": lambda r, a: trace_packet_wide(wt, *r, any_hit=a),
-            "packet_wide_exact": lambda r, a: trace_packet_wide(
-                wt, *r, any_hit=a, exact=True)}
+            "packet_wide": wide(False),
+            "packet_wide persistent": wide(False, persistent),
+            "packet_wide_exact": wide(True),
+            "packet_wide_exact persistent": wide(True, persistent)}
     times, bounds = {}, {}
     for bname, (rays, any_hit, ent) in batches.items():
         R = rays[0].shape[0]
@@ -1560,16 +1665,35 @@ def phase_new_timing(tables, wt, primary, secondary, entries, full, smi):
             f"{'any' if any_hit else 'closest'} hit: bound {b:.4f} ms by "
             f"{by} (the least of the five twins' work, {least}'s; "
             + ("full count" if bname == "primary" else "sampled work") + ")")
-        for name, fn in runs.items():
-            once = cuda_ms(lambda: fn(rays, any_hit), warmup=1, iters=1)[0]
-            iters = 10 if once <= 2000 else 3
-            t = cuda_ms(lambda: fn(rays, any_hit), warmup=1, iters=iters)
+        for exact in (False, True):
+            mode = "packet_wide" + ("_exact" if exact else "")
+            compare(runs[mode + " persistent"](rays, any_hit),
+                    runs[mode](rays, any_hit),
+                    f"[11] {bname} batch: {mode}, persistent warps against "
+                    "one warp a packet")
+        # The two builds of each mode in turns (A, B, B, A), 10 calls a
+        # turn.
+        turns = ["packet", "packet_pipe"]
+        for mode in ("packet_wide", "packet_wide_exact"):
+            other = mode + " persistent"
+            turns += [mode, other, other, mode]
+        samples = {}
+        for name in turns:
+            samples.setdefault(name, []).extend(cuda_ms(
+                lambda: runs[name](rays, any_hit), warmup=1, iters=10))
+        for name, t in samples.items():
             ms = statistics.median(t)
             times[bname, name] = ms
-            log(f"[11] {bname} batch: {name} median {ms:.4f} ms of {iters} "
+            log(f"[11] {bname} batch: {name} median {ms:.4f} ms of {len(t)} "
                 f"(min {min(t):.4f}, max {max(t):.4f}) = "
                 f"{R / ms / 1e3:.2f} Mrays/s, {ms / b:.1f}x the batch's "
                 f"bound; on {smi}")
+        log(f"[11] {bname} batch: packet_wide one warp a packet / "
+            f"persistent warps: exact=False "
+            f"{times[bname, 'packet_wide']:.4f} / "
+            f"{times[bname, 'packet_wide persistent']:.4f} ms, exact=True "
+            f"{times[bname, 'packet_wide_exact']:.4f} / "
+            f"{times[bname, 'packet_wide_exact persistent']:.4f} ms")
     rows = {}
     for engine in NEW_ENGINES:
         twin = ALL_ENGINES[engine][1]
@@ -2429,7 +2553,9 @@ def main():
 
     phase_soup_variants(device, ("packet_pipe",), "[11]")
     phase_soup_wide(device)
+    mark("11 soup")
     new_launches, new_r, decided = phase_new_renders(r, secondary)
+    mark("11 renders")
     log(f"[11] rays decided by brute_force_mt over every packet_wide pass: "
         f"{decided}")
     wt = new_r["packet_wide"].tables
@@ -2439,9 +2565,13 @@ def main():
                    for e, w in {**bw, **pipe_works[b][1]}.items()}
                for b, (scale, bw) in works.items()}
     phase_wide_twins(wt, secondary, entries)
+    mark("11 slices")
+    persistent, secs, plog = persistent_library()
+    log(f"[11] packet_wide ptxas: {wide_ptxas(b.log)}; the persistent "
+        f"build {secs:.1f} s: {wide_ptxas(plog)}")
     primary_bnd, new_rows, full_counts = phase_new_timing(
         r.tables, wt, (batch.orig, batch.dirn, batch.tmin, batch.tmax),
-        secondary, entries, full_counts, smi)
+        secondary, entries, full_counts, smi, persistent)
     del new_r
     phase_hairball_wide_refused(hair, device)
     mark("11")

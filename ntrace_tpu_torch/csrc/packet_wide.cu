@@ -1,50 +1,70 @@
-// 8-wide frustum packet traversal over the octant-addressed wide BVH: one
-// warp is one packet of 32 rays that shares one traversal (Aila and
-// Laine's packet kernel, HPG 2009, on Hopper).
+// 8-wide packet traversal over the octant-addressed wide BVH: one warp is
+// one packet of 32 rays that shares one traversal (Aila and Laine's packet
+// kernel, HPG 2009, on Hopper).
 //
 // Replaces: ntrace_tpu/trace/packet_wide.py:_make_kernel (registry name
 // tesla_persistent_packet). The TPU kernel runs a packet of rows x 128 rays
 // per program, builds per-packet pattern tiles from 14 vector reduces, and
 // gets the 8 child verdicts of a node row back through one weighted
-// sum-reduce; interleaved packets run phase-locked. Here:
-//   - a warp is a packet. Its origin and direction extents, direction
-//     sums, least tmin and largest running hit t come from __shfl_xor_sync
-//     butterflies in a fixed order (lane ^ 16, ^ 8, ^ 4, ^ 2, ^ 1), over
-//     the lanes whose ray exists (lanes past n_rays take no part; dead rays
-//     do, as in the reference);
+// sum-reduce, because per-lane slab work and per-child reduces are dear
+// there. On Hopper a thread's own slab test is cheap, so here:
+//   - warp w of block b traces packet 4b + w (rays 32 (4b + w) ..+32);
+//   - packet reductions: origin and direction extents, direction sums, the
+//     least tmin and the largest running hit t (`ptmax`) come from
+//     __shfl_xor_sync butterflies in a fixed order (lane ^ 16, ^ 8, ^ 4,
+//     ^ 2, ^ 1) over the lanes whose ray exists (dead rays take part, as
+//     in the reference);
 //   - the frustum (packet_wide.py:122-175): four corner planes around the
 //     dominant axis, biased by the origin box, and the reciprocal extents
-//     of that axis, computed once per packet by every lane alike. A plane
-//     whose components are not finite passes every child (the reference's
-//     turn NaN and cull every child);
-//   - the packet's stack (128 items) and leaf queue (48 runs) live in
-//     shared memory; lane 0 writes them, __syncwarp orders the reads;
-//   - node step: lanes 0-7 each read one child slot of the 512-byte node
-//     row (two float4 loads). exact=false: each of them tests its child
-//     against the planes and the t-interval along the dominant axis
-//     (packet_wide.py:199-233), and one __ballot_sync returns the 8
-//     verdicts. exact=true: every lane slab-tests its ray against all 8
-//     children (bounds broadcast by __shfl_sync) and __any_sync ORs each.
-//     Children go in slot ^ octant order: the first hit internal child is
-//     descended, the other hit internal children pushed far first, hit
-//     leaves queued (packet_wide.py:236-278);
-//   - leaf step: every live lane runs Moller-Trumbore on the queued row,
-//     the (t, id) fold of trace_common.cuh; in any-hit mode __all_sync
-//     ends the packet once every live ray has a hit;
+//     of that axis, once per packet by every lane alike, then kept in the
+//     warp's shared memory (it is the same in every lane; in registers it
+//     cost the exact=false kernels about 30 registers a thread). A plane
+//     whose components are not finite passes every child;
+//   - node step: the 16 lanes with (lane & 3) < 2 load the 256 useful bytes
+//     of the 512-byte node row (slot k's bounds and item are float4 4k and
+//     4k + 1) in one request into the warp's node buffer in shared memory
+//     (two buffers by step parity, so one __syncwarp a step orders them).
+//     exact=false: lanes 0-7 test their child against the frustum planes
+//     and the t-interval along the dominant axis (packet_wide.py:199-233),
+//     and one __ballot_sync gives the 8-bit frustum mask. Then, for the
+//     children in that mask (all 8 when exact=true), every lane slab-tests
+//     its own ray (bounds as broadcast 16-byte loads from shared memory)
+//     against its running hit t (-big for a dead ray in any-hit mode), and
+//     one __reduce_or_sync folds the lanes' masks: a child is visited when
+//     the frustum and at least one ray admit it (exact=true: when one ray
+//     does);
+//   - routing in parallel: lane kk of 0-7 owns visit position kk (slot
+//     kk ^ octant) and finds its stack or queue position by __popc over
+//     the positions that precede it in the reference's serial order: the
+//     first hit internal child is descended, the others pushed far first,
+//     hit leaves queued from kk 7 down to 0 (packet_wide.py:236-278);
+//   - leaf phase: the queue is known, so its rows stream through three
+//     row buffers per warp in shared memory: while row i is tested, row
+//     i + 1 is in flight by cp.async (16 bytes a lane, the row's first
+//     ceil(10 tris_per_row / 4) chunks). Every live lane runs
+//     Moller-Trumbore on the staged row, the (t, id) fold of
+//     trace_common.cuh; in any-hit mode __all_sync ends the packet once
+//     every live ray has a hit;
 //   - the largest running hit t is refreshed once per node/leaf phase
 //     alternation; the node loop pauses at QCAP - 8 queued runs.
-// The result per ray is exact (leaf tests are; culling is conservative),
-// so closest hits are bit-equal to packet_trace.cu's.
+// The result per ray is exact (leaf tests are; both culls are
+// conservative), so closest hits are bit-equal to packet_trace.cu's, and
+// the verdict of a step is the twin's (trace/packet_wide.py:_node_step),
+// so any-hit tri is bit-equal to it too.
 //
-// What bounds it on an H100: on coherent packets, the operations of the
-// leaf tests (every live lane tests every row the packet queues) and the
-// dependent node-row fetches from L2; on a degenerate packet (no axis on
-// which all 32 directions share a sign) the frustum passes every child and
-// the packet walks the whole tree and tests every triangle row. The design
-// keeps the node test off the per-ray path (8 lanes, one ballot) and reads
-// each node row once per packet, not once per ray; it does not reorder
-// rays into coherent packets (the renderer's sort decides) and keeps one
-// warp per packet without persistence: later speed work.
+// What bounds it on an H100: on incoherent rays, the leaf tests of rays
+// that share a packet but not a leaf (a packet pays for the union of its
+// rays' leaves, every live lane testing every queued row); on coherent
+// rays, the chain of dependent node-row fetches. The design culls each
+// child by the rays themselves (the frustum alone culls nothing on a
+// packet with no sign-consistent axis) and keeps the rows a leaf phase
+// needs in flight. Persistent warps (each taking the next packet from a
+// global counter; the reference's name) were built and timed against
+// this one-warp-a-packet launch: faster on AO and diffuse batches, slower
+// on primary and shadow ones, so the launch stays one warp a packet
+// (chip_smoke.py phase 11 times both). Left for later: forming coherent
+// packets (the renderer's ray sort decides them) and spreading a leaf's
+// (ray, triangle) pairs over the lanes whose rays want it.
 
 #include <math_constants.h>
 
@@ -56,12 +76,13 @@ using namespace ntrace;
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarp = 32;
-constexpr int kWarps = kBlock / kWarp;     // packets per block
+constexpr int kWarps = kBlock / kWarp;     // warps per block
 constexpr int kQcapW = 48;                  // packet_wide.py QCAP
 constexpr int kNodePause = kQcapW - 8;      // a node step queues <= 8 runs
 constexpr float kTmaxCap = 1.0e36f;         // packet_wide.py TMAX_CAP
 constexpr float kBig = 3.0e38f;             // packet_common.py INF
 constexpr int kMaxOuter = 1 << 20;          // packet_wide.py MAX_OUTER
+constexpr int kRowBufs = 3;                 // tested, in flight, free
 
 __device__ __forceinline__ float warp_min(float v) {
 #pragma unroll
@@ -92,6 +113,17 @@ struct Frustum {
     int axis;            // dominant axis A
     bool degen;          // no sign-consistent axis: the planes pass all
     int signs;           // octant of the direction sums
+};
+
+// One warp's shared memory. Slot k of a node row is node[par][2k] =
+// (lo.x, hi.x, lo.y, hi.y), node[par][2k + 1] = (lo.z, hi.z, item, -). The
+// frustum is the same in every lane, so it lives here, not in registers.
+struct WarpSmem {
+    float4 node[2][16];
+    float4 rows[kRowBufs][kRowLanes / 4];
+    int stack[kStackDepth];
+    int queue[kQcapW];
+    Frustum frustum;
 };
 
 __device__ __forceinline__ float pick3(const float* v, int a) {
@@ -155,7 +187,7 @@ __device__ Frustum make_frustum(const Ray& ray, bool present) {
     return f;
 }
 
-// The conservative node test of one child slot (packet_wide.py:199-233):
+// The conservative packet test of one child slot (packet_wide.py:199-233):
 // lo/hi are the slot's bounds by axis.
 __device__ __forceinline__ bool frustum_hit(const Frustum& f,
                                             const float* lo,
@@ -196,24 +228,37 @@ __device__ __forceinline__ bool frustum_hit(const Frustum& f,
            && fmaxf(ent, f.tn_lo) * kSlabLo <= fminf(ext, ptmax) * kSlabHi;
 }
 
-template <bool kAnyHit, bool kExact>
-__global__ void __launch_bounds__(kBlock) packet_wide_kernel(
-    const float* __restrict__ nodes, const float* __restrict__ tris,
-    const float* __restrict__ orig, const float* __restrict__ dirn,
-    const float* __restrict__ tmin, const float* __restrict__ tmax,
-    int n_rays, int n_nodes, int n_tri_rows, int tpr,
-    int* __restrict__ out_tri, float* __restrict__ out_t,
-    float* __restrict__ out_u, float* __restrict__ out_v) {
-    __shared__ int s_stack[kWarps][kStackDepth];
-    __shared__ int s_queue[kWarps][kQcapW];
-    const int lane = threadIdx.x & (kWarp - 1);
-    const int w = threadIdx.x / kWarp;
-    const int r = blockIdx.x * blockDim.x + threadIdx.x;
-    if (r - lane >= n_rays) return;           // the whole warp is past the end
-    const bool present = r < n_rays;
-    int* stack = s_stack[w];
-    int* queue = s_queue[w];
+// Stage triangle row `row` into `dst` with cp.async: lane c < chunks copies
+// 16-byte chunk c. One commit group per call (empty in the other lanes).
+__device__ __forceinline__ void fetch_row(float4* dst, const float* tris,
+                                          int row, int chunks, int lane) {
+    if (lane < chunks) {
+        const unsigned s = static_cast<unsigned>(
+            __cvta_generic_to_shared(dst + lane));
+        const float* src = tris + static_cast<size_t>(row) * kRowLanes
+                           + 4 * lane;
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n"
+                     :: "r"(s), "l"(src) : "memory");
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
+template <int kPending>
+__device__ __forceinline__ void wait_rows() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
+}
+
+// One packet: rays [32 * pk, 32 * pk + 32) of the batch.
+template <bool kAnyHit, bool kExact>
+__device__ __forceinline__ void trace_one_packet(
+    WarpSmem& sm, int lane, int pk, const float* __restrict__ nodes,
+    const float* __restrict__ tris, const float* __restrict__ orig,
+    const float* __restrict__ dirn, const float* __restrict__ tmin,
+    const float* __restrict__ tmax, int n_rays, int n_nodes, int n_tri_rows,
+    int tpr, int* __restrict__ out_tri, float* __restrict__ out_t,
+    float* __restrict__ out_u, float* __restrict__ out_v) {
+    const int r = pk * kWarp + lane;
+    const bool present = r < n_rays;
     Ray ray{};
     float t0 = 0.0f;
     if (present) {
@@ -226,129 +271,171 @@ __global__ void __launch_bounds__(kBlock) packet_wide_kernel(
     const bool dead = present && !live;
     // A packet without a live ray can accept nothing: no walk.
     if (__any_sync(kFull, live)) {
-        const Frustum f = make_frustum(ray, present);
-        int item = 0, sp = 0, qn = 0;
+        int signs;
+        {
+            const Frustum f = make_frustum(ray, present);
+            signs = f.signs;
+            // Read after the first node step's __syncwarp.
+            if (lane == 0) sm.frustum = f;
+        }
+        const int chunks = (kTriLanes * tpr + 3) / 4;
+        const int kk = lane & 7;            // lanes 0-7: visit position kk
+        const int slot = kk ^ signs;
+        const unsigned below = (1u << kk) - 1u;
+        int item = 0, sp = 0, qn = 0, par = 0;
         long long steps = 0;
         for (int outer = 0; item != kDone && outer < kMaxOuter; ++outer) {
-            const float ptmax = warp_max(present ? hit.t : -CUDART_INF_F);
+            const float ptmax =
+                kExact ? 0.0f : warp_max(present ? hit.t : -CUDART_INF_F);
             // Node loop.
             while (item != kDone && qn < kNodePause) {
                 if (steps == kMaxSteps) { item = kDone; qn = 0; break; }
                 ++steps;
-                const float* row = nodes + static_cast<size_t>(
-                    min(max(item, 0), n_nodes - 1)) * kRowLanes;
-                const int k = lane & 7;
-                const float4 q0 = __ldg(reinterpret_cast<const float4*>(
-                    row + 16 * k));
-                const float4 q1 = __ldg(reinterpret_cast<const float4*>(
-                    row + 16 * k + 4));
-                const float lo[3] = {q0.x, q0.z, q1.x};
-                const float hi[3] = {q0.y, q0.w, q1.y};
-                const int my_item = static_cast<int>(q1.z);
-                unsigned mask = 0;
-                if (kExact) {
-                    const float live_t = kAnyHit && dead ? -kBig : hit.t;
-#pragma unroll
-                    for (int c = 0; c < 8; ++c) {
-                        float b[6];
-                        for (int a = 0; a < 3; ++a) {
-                            b[2 * a] = __shfl_sync(kFull, lo[a], c);
-                            b[2 * a + 1] = __shfl_sync(kFull, hi[a], c);
-                        }
-                        float begin;
-                        const bool h = present && slab(b, ray, live_t, &begin);
-                        if (__any_sync(kFull, h)) mask |= 1u << c;
-                    }
-                } else {
-                    const bool h = lane < 8 && frustum_hit(f, lo, hi, ptmax);
-                    mask = __ballot_sync(kFull, h) & 0xffu;
-                }
-                // Slot ^ octant order: descend the first hit internal
-                // child, push the others far first, queue the leaves.
-                int items[8];
-                bool hits[8];
-#pragma unroll
-                for (int kk = 0; kk < 8; ++kk) {
-                    const int slot = kk ^ f.signs;
-                    hits[kk] = (mask >> slot) & 1u;
-                    items[kk] = __shfl_sync(kFull, my_item, slot);
-                }
-                int desc = kDone, first = -1;
-#pragma unroll
-                for (int kk = 0; kk < 8; ++kk) {
-                    if (first < 0 && hits[kk] && items[kk] >= 0) {
-                        desc = items[kk];
-                        first = kk;
-                    }
-                }
-                int np = 0, nq = 0;
-#pragma unroll
-                for (int kk = 7; kk >= 0; --kk) {
-                    if (hits[kk] && items[kk] >= 0 && kk != first) {
-                        if (lane == 0)
-                            stack[min(sp + np, kStackDepth - 1)] = items[kk];
-                        ++np;
-                    }
-                    if (hits[kk] && items[kk] < 0) {
-                        if (lane == 0)
-                            queue[min(qn + nq, kQcapW - 1)] = -items[kk] - 1;
-                        ++nq;
-                    }
+                float4* nb = sm.node[par];
+                par ^= 1;
+                if ((lane & 3) < 2) {
+                    const float4* row = reinterpret_cast<const float4*>(
+                        nodes + static_cast<size_t>(
+                            min(max(item, 0), n_nodes - 1)) * kRowLanes);
+                    nb[2 * (lane >> 2) + (lane & 3)] =
+                        __ldg(row + 4 * (lane >> 2) + (lane & 3));
                 }
                 __syncwarp();
-                const int sp1 = min(sp + np, kStackDepth);
-                qn += nq;
-                if (desc != kDone) {
+                unsigned cand = 0xffu;
+                if (!kExact) {
+                    bool h = false;
+                    if (lane < 8) {
+                        const float4 a = nb[2 * lane], b = nb[2 * lane + 1];
+                        const float lo[3] = {a.x, a.z, b.x};
+                        const float hi[3] = {a.y, a.w, b.y};
+                        h = frustum_hit(sm.frustum, lo, hi, ptmax);
+                    }
+                    cand = __ballot_sync(kFull, h) & 0xffu;
+                }
+                // The per-ray vote on the children the frustum admits.
+                const float live_t = kAnyHit && dead ? -kBig : hit.t;
+                unsigned mine = 0;
+                for (unsigned m = cand; m != 0; m &= m - 1) {
+                    const int c = __ffs(m) - 1;
+                    const float4 a = nb[2 * c], b = nb[2 * c + 1];
+                    const float bx[6] = {a.x, a.y, a.z, a.w, b.x, b.y};
+                    float begin;
+                    if (present && slab(bx, ray, live_t, &begin))
+                        mine |= 1u << c;
+                }
+                const unsigned mask = __reduce_or_sync(kFull, mine);
+                // Routing: lane kk < 8 places the child at visit position
+                // kk where the serial order of the reference would.
+                const int it = static_cast<int>(nb[2 * slot + 1].z);
+                const bool hs = lane < 8 && ((mask >> slot) & 1u);
+                const unsigned inner = __ballot_sync(kFull, hs && it >= 0);
+                const unsigned leaves = __ballot_sync(kFull, hs && it < 0);
+                const int first = inner ? __ffs(inner) - 1 : 0;
+                const int desc = __shfl_sync(kFull, it, first);
+                const unsigned push = inner & (inner - 1u);
+                if (lane < 8 && ((push >> kk) & 1u)) {
+                    // Far first: positions kk+1..7 were pushed before; a
+                    // full stack keeps the last push in its top entry.
+                    const int pos = sp + __popc(push >> (kk + 1));
+                    if (pos < kStackDepth - 1 || (push & below) == 0)
+                        sm.stack[min(pos, kStackDepth - 1)] = it;
+                }
+                if (lane < 8 && ((leaves >> kk) & 1u)) {
+                    const int pos = qn + __popc(leaves >> (kk + 1));
+                    if (pos < kQcapW - 1 || (leaves & below) == 0)
+                        sm.queue[min(pos, kQcapW - 1)] = -it - 1;
+                }
+                const int sp1 = min(sp + __popc(push), kStackDepth);
+                qn += __popc(leaves);
+                if (inner) {
                     item = desc;
                     sp = sp1;
                 } else if (sp1 > 0) {
-                    item = stack[sp1 - 1];
+                    // Nothing was pushed this step: the top entry was
+                    // written before this step's __syncwarp.
+                    item = sm.stack[sp1 - 1];
                     sp = sp1 - 1;
                 } else {
                     item = kDone;
                     sp = sp1;
                 }
-                __syncwarp();
             }
-            // Leaf loop: one queued row per step, from the top run.
-            while (qn > 0) {
-                if (steps == kMaxSteps) { item = kDone; qn = 0; break; }
-                ++steps;
-                const int entry = queue[qn - 1];
-                const int trow = min(entry >> 5, n_tri_rows - 1);
-                if (live) test_row(tris, trow, tpr, ray, hit);
-                __syncwarp();
-                if (entry & 31) {
-                    if (lane == 0) queue[qn - 1] = entry + 31;
-                } else {
-                    --qn;
+            // Leaf phase: the queued rows, top run first, each run's rows
+            // in order; row i + 1 in flight while row i is tested.
+            __syncwarp();   // the node steps' queue entries
+            if (qn > 0) {
+                int q = qn - 1, entry = sm.queue[q];
+                fetch_row(sm.rows[0], tris, min(entry >> 5, n_tri_rows - 1),
+                          chunks, lane);
+                for (int i = 0;; ++i) {
+                    if (steps == kMaxSteps) { item = kDone; break; }
+                    ++steps;
+                    int nq = q, next = entry;
+                    if (next & 31) {
+                        next += 31;             // the run's next row
+                    } else if (--nq >= 0) {
+                        next = sm.queue[nq];
+                    }
+                    const bool more = nq >= 0;
+                    if (more) {
+                        // Buffer (i + 1) % 3 was last read in step i - 2,
+                        // before step i - 1's __syncwarp.
+                        fetch_row(sm.rows[(i + 1) % kRowBufs], tris,
+                                  min(next >> 5, n_tri_rows - 1), chunks,
+                                  lane);
+                        wait_rows<1>();
+                    } else {
+                        wait_rows<0>();
+                    }
+                    __syncwarp();   // every lane's chunks of row i landed
+                    if (live) {
+                        test_row_shared(reinterpret_cast<const float*>(
+                                            sm.rows[i % kRowBufs]),
+                                        tpr, ray, hit);
+                    }
+                    if (kAnyHit && __all_sync(kFull, !live || hit.id >= 0)) {
+                        item = kDone;
+                        break;
+                    }
+                    if (!more) break;
+                    q = nq;
+                    entry = next;
                 }
-                __syncwarp();
-                if (kAnyHit && __all_sync(kFull, !live || hit.id >= 0)) {
-                    item = kDone;
-                    qn = 0;
-                }
+                wait_rows<0>();     // nothing in flight past the phase
+                qn = 0;
             }
         }
     }
     if (present) store_hit(hit, r, out_tri, out_t, out_u, out_v);
 }
 
-template <bool kAnyHit>
-void launch(bool exact, dim3 grid, cudaStream_t s, const float* n,
-            const float* t12, const float* o, const float* d,
-            const float* tn, const float* tx, int n_rays, int n_nodes,
-            int n_tri_rows, int tpr, int* tri, float* t, float* u,
-            float* v) {
-    if (exact) {
-        packet_wide_kernel<kAnyHit, true><<<grid, kBlock, 0, s>>>(
-            n, t12, o, d, tn, tx, n_rays, n_nodes, n_tri_rows, tpr, tri, t,
-            u, v);
-    } else {
-        packet_wide_kernel<kAnyHit, false><<<grid, kBlock, 0, s>>>(
-            n, t12, o, d, tn, tx, n_rays, n_nodes, n_tri_rows, tpr, tri, t,
-            u, v);
-    }
+template <bool kAnyHit, bool kExact>
+__global__ void __launch_bounds__(kBlock) packet_wide_kernel(
+    const float* __restrict__ nodes, const float* __restrict__ tris,
+    const float* __restrict__ orig, const float* __restrict__ dirn,
+    const float* __restrict__ tmin, const float* __restrict__ tmax,
+    int n_rays, int n_nodes, int n_tri_rows, int tpr,
+    int* __restrict__ out_tri, float* __restrict__ out_t,
+    float* __restrict__ out_u, float* __restrict__ out_v) {
+    __shared__ WarpSmem s_warp[kWarps];
+    const int lane = threadIdx.x & (kWarp - 1);
+    const int w = threadIdx.x / kWarp;
+    const int pk = blockIdx.x * kWarps + w;
+    if (pk * kWarp >= n_rays) return;   // the whole warp is past the end
+    trace_one_packet<kAnyHit, kExact>(
+        s_warp[w], lane, pk, nodes, tris, orig, dirn, tmin, tmax, n_rays,
+        n_nodes, n_tri_rows, tpr, out_tri, out_t, out_u, out_v);
+}
+
+template <bool kAnyHit, bool kExact>
+void launch(int n_rays, cudaStream_t s, const float* n, const float* t12,
+            const float* o, const float* d, const float* tn, const float* tx,
+            int n_nodes, int n_tri_rows, int tpr, int* tri, float* t,
+            float* u, float* v) {
+    auto kernel = packet_wide_kernel<kAnyHit, kExact>;
+    const int grid = (n_rays + kBlock - 1) / kBlock;
+    kernel<<<grid, kBlock, 0, s>>>(n, t12, o, d, tn, tx, n_rays, n_nodes,
+                                   n_tri_rows, tpr, tri, t, u, v);
 }
 
 }  // namespace
@@ -364,21 +451,20 @@ extern "C" int ntrace_packet_wide(const void* nodes_w, const void* tris,
                                   void* out_tri, void* out_t, void* out_u,
                                   void* out_v, void* stream) {
     if (n_rays <= 0) return static_cast<int>(cudaSuccess);
-    const dim3 grid((n_rays + kBlock - 1) / kBlock);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
     auto args = [&](auto fn) {
-        fn(exact != 0, grid, s, static_cast<const float*>(nodes_w),
+        fn(n_rays, static_cast<cudaStream_t>(stream),
+           static_cast<const float*>(nodes_w),
            static_cast<const float*>(tris), static_cast<const float*>(orig),
            static_cast<const float*>(dirn), static_cast<const float*>(tmin),
-           static_cast<const float*>(tmax), n_rays, n_nodes, n_tri_rows,
+           static_cast<const float*>(tmax), n_nodes, n_tri_rows,
            tris_per_row, static_cast<int*>(out_tri),
            static_cast<float*>(out_t), static_cast<float*>(out_u),
            static_cast<float*>(out_v));
     };
     if (any_hit) {
-        args(launch<true>);
+        if (exact) args(launch<true, true>); else args(launch<true, false>);
     } else {
-        args(launch<false>);
+        if (exact) args(launch<false, true>); else args(launch<false, false>);
     }
     return static_cast<int>(cudaGetLastError());
 }

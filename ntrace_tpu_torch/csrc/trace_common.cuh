@@ -1,6 +1,7 @@
 // Device code shared by the BVH traversal kernels (packet_trace.cu,
-// packet_ww.cu, packet_ifif.cu): the ray and hit records, the table
-// decode, the slab test and the Moller-Trumbore row test.
+// packet_ww.cu, packet_ifif.cu, packet_pipe.cu, packet_wide.cu,
+// packet_batch.cuh): the ray and hit records, the table decode, the slab
+// test and the Moller-Trumbore row test (from device or shared memory).
 //
 // Numerics: the slab test follows packet_pallas.py:_slab_child (73-96)
 // and the triangle test packet_pallas.py:186-201, op for op, as
@@ -135,41 +136,57 @@ __device__ __forceinline__ bool slab(const float* b, const Ray& r,
     return t0 * kSlabLo <= t1 * kSlabHi;
 }
 
-// Moller-Trumbore of the ray against the `tpr` slots of triangle row
-// `row`, each valid hit folded into `hit` by the (t, id) order.
+// Moller-Trumbore of the ray against one triangle slot (v0, e1, e2, id),
+// a valid hit folded into `hit` by the (t, id) order.
+__device__ __forceinline__ void test_slot(float v0x, float v0y, float v0z,
+                                          float e1x, float e1y, float e1z,
+                                          float e2x, float e2y, float e2z,
+                                          int tid, const Ray& r, Hit& hit) {
+    const float px = r.dy * e2z - r.dz * e2y;
+    const float py = r.dz * e2x - r.dx * e2z;
+    const float pz = r.dx * e2y - r.dy * e2x;
+    const float det = e1x * px + e1y * py + e1z * pz;
+    const float inv = 1.0f / (det == 0.0f ? 1.0f : det);
+    const float tvx = r.ox - v0x, tvy = r.oy - v0y, tvz = r.oz - v0z;
+    const float u = (tvx * px + tvy * py + tvz * pz) * inv;
+    const float qx = tvy * e1z - tvz * e1y;
+    const float qy = tvz * e1x - tvx * e1z;
+    const float qz = tvx * e1y - tvy * e1x;
+    const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv;
+    const float t = (e2x * qx + e2y * qy + e2z * qz) * inv;
+    const bool valid = det != 0.0f && tid >= 0 && u >= 0.0f && v >= 0.0f
+                       && u + v <= 1.0f && t > r.tn;
+    if (valid && (t < hit.t || (t == hit.t && tid < hit.id))) {
+        hit.t = t;
+        hit.id = tid;
+        hit.u = u;
+        hit.v = v;
+    }
+}
+
+// test_slot over the `tpr` slots of triangle row `row`, read from device
+// memory.
 __device__ __forceinline__ void test_row(const float* __restrict__ tris,
                                          int row, int tpr, const Ray& r,
                                          Hit& hit) {
     const float* base = tris + static_cast<size_t>(row) * kRowLanes;
     for (int j = 0; j < tpr; ++j) {
         const float* s = base + kTriLanes * j;
-        const float v0x = __ldg(s + 0), v0y = __ldg(s + 1),
-                    v0z = __ldg(s + 2);
-        const float e1x = __ldg(s + 3), e1y = __ldg(s + 4),
-                    e1z = __ldg(s + 5);
-        const float e2x = __ldg(s + 6), e2y = __ldg(s + 7),
-                    e2z = __ldg(s + 8);
-        const int tid = static_cast<int>(__ldg(s + 9));
-        const float px = r.dy * e2z - r.dz * e2y;
-        const float py = r.dz * e2x - r.dx * e2z;
-        const float pz = r.dx * e2y - r.dy * e2x;
-        const float det = e1x * px + e1y * py + e1z * pz;
-        const float inv = 1.0f / (det == 0.0f ? 1.0f : det);
-        const float tvx = r.ox - v0x, tvy = r.oy - v0y, tvz = r.oz - v0z;
-        const float u = (tvx * px + tvy * py + tvz * pz) * inv;
-        const float qx = tvy * e1z - tvz * e1y;
-        const float qy = tvz * e1x - tvx * e1z;
-        const float qz = tvx * e1y - tvy * e1x;
-        const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv;
-        const float t = (e2x * qx + e2y * qy + e2z * qz) * inv;
-        const bool valid = det != 0.0f && tid >= 0 && u >= 0.0f && v >= 0.0f
-                           && u + v <= 1.0f && t > r.tn;
-        if (valid && (t < hit.t || (t == hit.t && tid < hit.id))) {
-            hit.t = t;
-            hit.id = tid;
-            hit.u = u;
-            hit.v = v;
-        }
+        test_slot(__ldg(s + 0), __ldg(s + 1), __ldg(s + 2), __ldg(s + 3),
+                  __ldg(s + 4), __ldg(s + 5), __ldg(s + 6), __ldg(s + 7),
+                  __ldg(s + 8), static_cast<int>(__ldg(s + 9)), r, hit);
+    }
+}
+
+// The same over a row staged in shared memory (`row` 8-byte aligned; a slot
+// is 10 floats, so five 8-byte broadcast loads).
+__device__ __forceinline__ void test_row_shared(const float* row, int tpr,
+                                                const Ray& r, Hit& hit) {
+    for (int j = 0; j < tpr; ++j) {
+        const float2* s = reinterpret_cast<const float2*>(row + kTriLanes * j);
+        const float2 a = s[0], b = s[1], c = s[2], d = s[3], e = s[4];
+        test_slot(a.x, a.y, b.x, b.y, c.x, c.y, d.x, d.y, e.x,
+                  static_cast<int>(e.y), r, hit);
     }
 }
 

@@ -20,19 +20,25 @@ traversal (csrc/packet_wide.cu says how):
     internal child is descended, the other hit internal children are pushed
     far first, hit leaves are queued as runs first_row * 32 + rows - 1
     (STACK_DEPTH 128, QCAP 48, the node loop paused at QCAP - 8);
-  - exact=False, the reference renderer's choice: the conservative packet
-    test (packet_wide.py:96-175, 199-233): four corner-frustum planes
-    around the dominant axis, biased by the origin box, and the t-interval
-    along that axis against [max(entry, least tmin), min(exit, ptmax)].
-    Both take the slab test's relative slack (packet_common.SLAB_EPS): on
-    the planes, 2^-20 of the sum of the magnitudes of each plane sum's
-    terms. A
-    packet with no sign-consistent axis (degenerate) passes every child
-    the interval admits, and an empty slot decodes to a leaf of row 0
+  - the node step's verdict (`node_hits`): every present ray slab-tests
+    each child against its own running hit t (-INF for a dead ray in
+    any-hit mode), and a child passes when one ray's test does
+    (`ray_votes`); that alone is exact=True. exact=False, the reference
+    renderer's choice, also needs the conservative packet test
+    (packet_wide.py:96-175, 199-233): four corner-frustum planes around the
+    dominant axis, biased by the origin box, and the t-interval along that
+    axis against [max(entry, least tmin), min(exit, ptmax)]. Both take the
+    slab test's relative slack (packet_common.SLAB_EPS): on the planes,
+    2^-20 of the sum of the magnitudes of each plane sum's terms. A packet
+    with no sign-consistent axis (degenerate) passes every child the
+    interval admits, and an empty slot decodes to a leaf of row 0
     (superset-safe). Where a plane's quotients are not finite (a direction
-    extent near zero on the dominant axis), the reference's planes turn
-    NaN and cull every child; here such a plane passes every child;
-  - exact=True: each ray slab-tests all 8 children, OR over the packet;
+    extent near zero on the dominant axis), the reference's planes turn NaN
+    and cull every child; here such a plane passes every child. So
+    exact=False visits a child only where the frustum and a ray admit it,
+    a subset of exact=True's verdict at the same state (alone, the
+    frustum culls nothing on a degenerate packet, which most AO and
+    diffuse packets are);
   - a leaf step runs exact per-ray Moller-Trumbore on the queued row and
     folds it by (t, id); in any-hit mode the packet stops once every live
     ray has a hit.
@@ -48,6 +54,13 @@ order) and stops where the kernel's any-hit vote stops, and the fold it
 applies is a lexicographic (t, id) minimum, whose result does not depend on
 the order. Rays on a CUDA device go through the kernel, rays on the CPU
 through `trace_packet_wide_ref`. Nothing falls back.
+
+What bounds the kernel on an H100: on incoherent rays, the leaf tests of
+rays that share a packet but not a leaf (a packet pays for the union of its
+rays' leaves); on coherent ones, the dependent node-row fetches. Left for
+later: forming coherent packets for secondary rays (the renderer's sort
+decides them) and spreading a leaf's (ray, triangle) pairs over the lanes
+whose rays want it.
 """
 
 from __future__ import annotations
@@ -308,6 +321,34 @@ def trace_packet_wide_ref(tables: WideTables, orig, dirn, tmin, tmax, *,
     return tuple(a.reshape(-1)[:r].clone() for a in out)
 
 
+def ray_votes(s: _Packets, p, row: torch.Tensor,
+              any_hit: bool) -> torch.Tensor:
+    """The per-ray vote of packets p (k,) on the 8 child slots of `row`
+    (k, 128): each present ray slab-tests every child against its own
+    running hit (-INF for a dead ray in any-hit mode), and a child passes
+    when one ray's test does. Returns (k, 8) by slot."""
+    o, inv = s.o[p], s.inv[p]
+    ht = s.ht[p]
+    if any_hit:
+        ht = torch.where(s.present[p] & ~s.live[p], -INF, ht)
+    args = (o[..., 0], o[..., 1], o[..., 2], inv[..., 0], inv[..., 1],
+            inv[..., 2], s.tn[p], ht)
+    present = s.present[p]
+    return torch.stack([
+        (slab_child(row[:, None, :], 16 * c, *args)[0] & present).any(1)
+        for c in range(ARITY)], 1)
+
+
+def node_hits(s: _Packets, F: dict, p, row: torch.Tensor, exact: bool,
+              any_hit: bool) -> torch.Tensor:
+    """The verdict of packets p (k,) on the 8 child slots of `row` (k, 128):
+    the per-ray vote, under the packet frustum when exact is False. Both
+    tests are conservative, so exact=False's verdict is a subset of
+    exact=True's and loses no hit. Returns (k, 8) by slot."""
+    hits = ray_votes(s, p, row, any_hit)
+    return hits if exact else hits & frustum_hits(F, p, row, s.ptmax)
+
+
 def _node_step(s: _Packets, F: dict, p, tables: WideTables, exact: bool,
                any_hit: bool, work):
     """Packets p visit their node (packet_wide.py:178-278)."""
@@ -317,19 +358,7 @@ def _node_step(s: _Packets, F: dict, p, tables: WideTables, exact: bool,
     row = nodes[ref.long()]                                  # (k, 128)
     if work is not None:
         tally(work, ref, ref[:0], 0)
-    if exact:
-        o, inv = s.o[p], s.inv[p]
-        ht = s.ht[p]
-        if any_hit:
-            ht = torch.where(s.present[p] & ~s.live[p], -INF, ht)
-        args = (o[..., 0], o[..., 1], o[..., 2], inv[..., 0], inv[..., 1],
-                inv[..., 2], s.tn[p], ht)
-        present = s.present[p]
-        hits = torch.stack([
-            (slab_child(row[:, None, :], 16 * c, *args)[0] & present).any(1)
-            for c in range(ARITY)], 1)
-    else:
-        hits = frustum_hits(F, p, row, s.ptmax)
+    hits = node_hits(s, F, p, row, exact, any_hit)
     items8 = row.view(-1, ARITY, 16)[:, :, 6].to(torch.int32)
     slot = torch.arange(ARITY, device=p.device)[None, :] ^ F["signs"][p][:,
                                                                         None]

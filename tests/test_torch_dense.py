@@ -20,6 +20,7 @@ Tolerances, and why:
   the reference's; the visit-list twin is bit-equal to the walk twin.
 """
 
+import ctypes
 import re
 
 import jax.numpy as jnp
@@ -473,9 +474,10 @@ def test_wrappers_reject_bad_operands():
 
 
 def test_c_entry_points_match_ctypes_signatures():
-    """Each extern "C" function of csrc/*.cu takes as many arguments as
-    its ctypes binding declares (nothing compiles the sources here). The
-    traversal kernels define theirs with trace_common.cuh's
+    """Each extern "C" function of csrc/*.cu takes the arguments its ctypes
+    binding declares, in order and by kind: a pointer as c_void_p, an int
+    as c_int, a long long as c_longlong (nothing compiles the sources
+    here). The traversal kernels define theirs with trace_common.cuh's
     NTRACE_TRAVERSAL_ENTRY(name, kernel), whose one signature counts for
     each name."""
     assert [p.name for p in kbuild.sources()] == ["binraster_trace.cu",
@@ -491,18 +493,26 @@ def test_c_entry_points_match_ctypes_signatures():
                                                   "packet_wide.cu",
                                                   "packet_ww.cu",
                                                   "row_scan.cu"]
+    def kind(arg: str):
+        arg = " ".join(arg.replace("\\", " ").split())   # macro lines
+        if "*" in arg or arg.startswith("cudaStream_t "):
+            return ctypes.c_void_p
+        if arg.startswith("long long "):
+            return ctypes.c_longlong
+        return ctypes.c_int if arg.startswith("int ") else arg
+
     found = {}
     for src in kbuild.sources() + [kbuild.CSRC_DIR / "trace_common.cuh"]:
         for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)',
                              src.read_text()):
-            args = m.group(2).strip()
-            found[m.group(1)] = len(args.split(",")) if args else 0
+            found[m.group(1)] = [kind(a) for a in m.group(2).split(",")
+                                 if a.strip()]
     per_entry = found.pop("NAME")
     for src in kbuild.sources():
         for m in re.finditer(r"^NTRACE_TRAVERSAL_ENTRY\((\w+), \w+\)$",
                              src.read_text(), re.MULTILINE):
             found[m.group(1)] = per_entry
-    assert found == {k: len(v[1]) for k, v in kbuild.SIGNATURES.items()}
+    assert found == {k: v[1] for k, v in kbuild.SIGNATURES.items()}
 
 
 @pytest.mark.cuda

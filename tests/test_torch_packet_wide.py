@@ -203,6 +203,128 @@ def test_twin_counts_its_work(setups):
     assert away == {"node_visits": 1, "tri_slot_tests": 0}
 
 
+def _hemisphere_packets(scene, n_packets, seed, spread=0.5):
+    """AO-like packets from a seeded numpy generator: per packet, 32 rays
+    from origins spread +-`spread` around a random triangle's centroid,
+    with cosine-weighted directions about that triangle's normal (a
+    hemisphere spans both signs on every axis but at most one, so most
+    packets have no sign-consistent axis). Returns orig, dirn (R, 3)."""
+    g = np.random.default_rng(seed)
+    tv = scene.tri_verts().astype(np.float64)
+    pick = g.integers(0, tv.shape[0], n_packets)
+    cen = tv[pick].mean(axis=1)
+    nrm = np.cross(tv[pick, 1] - tv[pick, 0], tv[pick, 2] - tv[pick, 0])
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    orig = (cen[:, None] + g.uniform(-spread, spread, (n_packets, 32, 3))
+            + 1e-3 * nrm[:, None])
+    u1, u2 = g.uniform(size=(2, n_packets, 32))
+    r, phi = np.sqrt(u1), 2.0 * np.pi * u2
+    helper = np.where(np.abs(nrm[:, :1]) > 0.9, [[0.0, 1.0, 0.0]],
+                      [[1.0, 0.0, 0.0]])
+    b1 = np.cross(nrm, helper)
+    b1 /= np.linalg.norm(b1, axis=1, keepdims=True)
+    b2 = np.cross(nrm, b1)
+    d = ((r * np.cos(phi))[..., None] * b1[:, None]
+         + (r * np.sin(phi))[..., None] * b2[:, None]
+         + np.sqrt(1.0 - u1)[..., None] * nrm[:, None])
+    d /= np.linalg.norm(d, axis=2, keepdims=True)
+    return (orig.reshape(-1, 3).astype(np.float32),
+            d.reshape(-1, 3).astype(np.float32))
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_node_verdict_is_frustum_and_vote(setups, any_hit):
+    """The node step's verdict on random packets against random node rows
+    of soup_medium's wide tables: exact=False's is frustum_hits & the
+    per-ray vote, and a subset of exact=True's (which is the vote alone).
+    Both are conservative: a child that a live ray truly enters before its
+    running hit (float64, with a margin for rounding) is always visited.
+    Half the packets are coherent (a narrow cone from a small origin
+    box), half hemispheres, most of which have no sign-consistent axis
+    (degenerate)."""
+    scene, _, tables, _, _, _ = setups["medium-sah"]
+    g = np.random.default_rng(77)
+    base = g.uniform(-12.0, 12.0, (16, 1, 3))
+    aim = g.uniform(-4.0, 4.0, (16, 1, 3)) - base
+    aim /= np.linalg.norm(aim, axis=2, keepdims=True)
+    co = base + g.uniform(-0.2, 0.2, (16, 32, 3))
+    cd = aim + g.normal(scale=0.02, size=(16, 32, 3))
+    cd /= np.linalg.norm(cd, axis=2, keepdims=True)
+    ho, hd = _hemisphere_packets(scene, 16, seed=5)
+    orig = np.concatenate([co.reshape(-1, 3), ho]).astype(np.float32)
+    dirn = np.concatenate([cd.reshape(-1, 3), hd]).astype(np.float32)
+    n = orig.shape[0]
+    tmin = np.zeros(n, np.float32)
+    tmax = g.uniform(0.5, 30.0, n).astype(np.float32)
+    tmax[g.uniform(size=n) < 0.1] = 0.0            # dead rays
+    s = packet_wide._Packets(*_torch(orig, dirn, tmin, tmax))
+    F = packet_wide.packet_frustum(s.o, s.d, s.tn, s.present)
+    degen = F["degen"].numpy()
+    assert degen[16:].mean() > 0.25 and not degen[:16].any()
+    p = torch.arange(s.P)
+    s.refresh_ptmax(p)
+    nodes = tables.nodes_w[:tables.num_nodes]
+    for _ in range(8):
+        row = nodes[torch.from_numpy(g.integers(0, nodes.shape[0], s.P))]
+        loose = packet_wide.node_hits(s, F, p, row, False, any_hit)
+        tight = packet_wide.node_hits(s, F, p, row, True, any_hit)
+        vote = packet_wide.ray_votes(s, p, row, any_hit)
+        assert torch.equal(tight, vote)
+        assert torch.equal(loose, packet_wide.frustum_hits(F, p, row,
+                                                           s.ptmax) & vote)
+        assert not (loose & ~tight).any()
+        # Conservative: exact entry/exit in float64 of every live ray.
+        b = row.view(-1, 8, 16)[..., :6].double().numpy()
+        o = s.o.double().numpy()[:, :, None]
+        inv = 1.0 / s.d.double().numpy()[:, :, None]
+        t_lo = (b[:, None, :, 0::2] - o) * inv
+        t_hi = (b[:, None, :, 1::2] - o) * inv
+        enter = np.maximum(np.minimum(t_lo, t_hi).max(-1), 0.0)
+        leave = np.minimum(np.maximum(t_lo, t_hi).min(-1),
+                           s.ht.double().numpy()[:, :, None])
+        live = s.live.numpy()[:, :, None]
+        truly = (live & (leave - enter > 1e-3 * (1.0 + np.abs(leave)))
+                 ).any(1)
+        assert truly.any() and (~truly).any()
+        assert not (truly & ~loose.numpy()).any()
+        # On a degenerate packet the frustum's planes pass every child.
+        assert torch.equal(loose[F["degen"]], tight[F["degen"]])
+
+
+def test_ao_packet_work_at_most_exact(soup_medium):
+    """On AO-like packets (spread origins, cosine-hemisphere directions)
+    exact=False, the renderer's choice, does no more work than exact=True:
+    the frustum alone culls nothing there, and the per-ray vote under it
+    is exact=True's test. Hits are exact either way."""
+    flat = _flat(soup_medium, "binned_sah")
+    tables = tables_from_wide(pack_wide_bvh(flat, soup_medium.tri_verts(),
+                                            tris_per_row=4), "cpu")
+    orig, dirn = _hemisphere_packets(soup_medium, 48, seed=9)
+    n = orig.shape[0]
+    tmin = np.full(n, 1e-4, np.float32)
+    for any_hit, t1 in ((True, 2.0), (False, 1e9)):
+        tmax = np.full(n, t1, np.float32)
+        work, out = {}, {}
+        for exact in EXACT:
+            work[exact] = {}
+            out[exact] = trace_packet_wide_ref(
+                tables, *_torch(orig, dirn, tmin, tmax), any_hit=any_hit,
+                exact=exact, work=work[exact])
+        for key in ("node_visits", "tri_slot_tests"):
+            assert work[False][key] <= work[True][key], (any_hit, key, work)
+        if any_hit:
+            blocked = brute_force_anyhit(soup_medium, orig, dirn, tmin, tmax)
+            assert 0.05 < blocked.mean() < 0.95
+            for exact in EXACT:
+                np.testing.assert_array_equal(out[exact][0].numpy() >= 0,
+                                              blocked)
+        else:
+            _assert_bit_equal(out[False], out[True])
+            np.testing.assert_array_equal(
+                out[False][0].numpy(),
+                brute_force_mt(soup_medium, orig, dirn, tmin, tmax).tri)
+
+
 def test_wide_tables_refuse_their_limits(soup_small):
     """The float leaf item is exact below 2**19 triangle rows and holds at
     most 32 rows of a leaf: tables past either are refused."""
