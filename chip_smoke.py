@@ -112,11 +112,17 @@ Phases, each printed as it completes:
      closest hits equal to the packet kernel's on every ray, any hits on
      tri >= 0, images bit-equal to phase 8's, one launch per pass; each
      kernel bit-equal to its twin on a contiguous slice of whole packets
-     of every batch; phase 7's LBVH tables (built on the card,
-     nodes_per_row 1) traced by each, equal to phase 7's frame; times of
-     the three on the primary, shadow, AO and diffuse batches beside the
-     bound over all eight twins and their own work, and the twins on the
-     primary frame
+     of every batch, with its twin's steps, drains and block barriers a
+     packet (the serial-routing rule and the two-barrier step's) beside
+     its slot tests a ray, and bfs's slot tests beside the whole-packet
+     rule's (bdl's twin at qgroup = rows) on the AO and diffuse slices;
+     the registers, shared memory and blocks an SM of each batch_kernel
+     instantiation (ptxas and the CUDA runtime, at the renderer's knobs);
+     phase 7's LBVH tables (built on the card, nodes_per_row 1) traced by
+     each, equal to phase 7's frame; times of the three on the primary,
+     shadow, AO and diffuse batches beside the bound over all eight twins,
+     their own work and their steps, drains and barriers, and the twins
+     on the primary frame
  14. the exact byte-plane gather (csrc/gather.cu): the reference's test
      cases (tests/test_gather.py shapes, skewed and repeated indices, a
      table holding inf, -inf, -0.0, NaN, 1e-38 and 255.5), the kernel
@@ -187,6 +193,7 @@ from ntrace_tpu_torch.tables import (WideTables, tables_from_packed,
                                      tables_from_wide)
 from ntrace_tpu_torch.trace import binraster as br
 from ntrace_tpu_torch.trace import binraster_dense as bd
+from ntrace_tpu_torch.trace import packet_batch
 from ntrace_tpu_torch.trace.packet import trace_packet, trace_packet_ref
 from ntrace_tpu_torch.trace.packet_bdl import (trace_packet_bdl,
                                                trace_packet_bdl_ref)
@@ -1938,6 +1945,55 @@ BATCH_SOUP = (
 )
 BATCH_PACKET = 8 * WARP   # the renderer's packet: 8 warps (batch_knobs)
 BATCH_TWIN_S = 1.0        # twin seconds a phase-13 slice may grow to
+BATCH_SCHEDULES = {"packet_bfs": packet_batch.BFS,
+                   "packet_dleaf": packet_batch.DLEAF,
+                   "packet_bdl": packet_batch.BDL}
+
+
+def batch_steps(name: str, work: dict, n: int, any_hit: bool) -> str:
+    """A node-batch twin's work on n rays, per packet: steps, drains, rows
+    tested in drains (summed over groups) and block barriers by the rule
+    of the template that routed by one thread (one to start, then 3 a
+    step for bfs and 4 for dleaf and bdl, one more with any hit, 2 a
+    drain) and by the two-barrier step's (one to start, 2 a step); per
+    ray: slot tests."""
+    packets = -(-n // BATCH_PACKET)
+    steps = work["packet_steps"] / packets
+    drains = work["packet_drains"] / packets
+    old = 1 + steps * (3 + (name != "packet_bfs") + any_hit) + 2 * drains
+    return (f"per packet {steps:.1f} steps, {drains:.1f} drains of "
+            f"{work['drain_rows'] / packets:.1f} rows, block barriers "
+            f"{old:.1f} by the serial-routing rule and "
+            f"{1 + 2 * steps:.1f} by two a "
+            f"step; per ray {work['tri_slot_tests'] / n:.2f} slot tests")
+
+
+def batch_ptxas(log: str, max_depth: int) -> str:
+    """ptxas's registers and shared memory of each batch_kernel
+    instantiation, from the build log ([2]), with the registers, shared
+    memory a block and resident blocks an SM that the CUDA runtime gives
+    a launch at the renderer's knobs (8 warps a packet, qgroup 1) on
+    tables of depth max_depth."""
+    found = {}
+    for m in re.finditer(r"Compiling entry function '\w*batch_kernel"
+                         r"ILi(\d)ELb(\d)ELx\d+ELb(\d)E\w*'"
+                         r"(?:(?!Compiling entry).)*?Used (\d+) registers"
+                         r"(?:[^\n]*?(\d+) bytes smem)?", log, re.DOTALL):
+        found[m.group(1), m.group(2), m.group(3)] = (m.group(4),
+                                                     m.group(5) or "0")
+    out = []
+    for name, sched in BATCH_SCHEDULES.items():
+        for any_hit in (False, True):
+            key = (str(sched.batch), str(int(sched.queued)),
+                   str(int(any_hit)))
+            regs, smem, blocks = packet_batch.occupancy(
+                sched, max_depth, any_hit, BATCH_PACKET // WARP)
+            ptx = (f"ptxas {found[key][0]} registers, {found[key][1]} B "
+                   "static smem; " if key in found else "")
+            out.append(f"{name} any_hit={int(any_hit)}: {ptx}{regs} "
+                       f"registers, {smem} B shared memory a block, "
+                       f"{blocks} blocks an SM")
+    return "; ".join(out)
 
 
 def phase_soup_batch(device):
@@ -2015,11 +2071,21 @@ def phase_batch_twins(tables, secondary, entries):
             compare(kernel(tb, *sl, any_hit=any_hit), tw,
                     f"[13] {name} on the {bname} slice vs twin")
             entries[bname][name] = (tb, work, R / n)
+            whole = ""
+            if name == "packet_bfs" and bname in ("ao", "diffuse"):
+                # The whole-packet rule bfs followed before: one queue for
+                # the packet (bdl at qgroup = rows), every warp testing
+                # every run the packet wants.
+                wq = {}
+                trace_packet_bdl_ref(tb, *sl, any_hit=any_hit,
+                                     qgroup=BATCH_PACKET // WARP, work=wq)
+                whole = (f" (the whole-packet rule, bdl's twin at qgroup = "
+                         f"rows: {wq['tri_slot_tests'] / n:.2f})")
             log(f"[13] {name} {bname}: kernel bit-equal to twin on rays "
                 f"{start}..+{n} of {R} ({-(-n // BATCH_PACKET)} packets, "
                 f"{'any' if any_hit else 'closest'} hit, tri included; twin "
                 f"{secs:.2f} s); per ray {work['node_visits'] / n:.2f} node "
-                f"visits, {work['tri_slot_tests'] / n:.2f} slot tests")
+                f"visits; " + batch_steps(name, work, n, any_hit) + whole)
 
 
 def phase_batch_lbvh(lbvh_tables, lbvh_res, batch, width, height):
@@ -2101,7 +2167,9 @@ def phase_batch_timing(tables, primary, secondary, entries, full, smi):
                 f"{R / ms / 1e3:.2f} Mrays/s, {ms / b:.1f}x the batch's "
                 f"bound; its own work {w['node_visits'] * scale:.0f} ray "
                 f"node visits, {w['tri_slot_tests'] * scale:.0f} slot tests "
-                f"({own:.4f} ms of FP32 operations); on {smi}")
+                f"({own:.4f} ms of FP32 operations); twin's "
+                + batch_steps(name, w, round(R / scale), any_hit)
+                + f"; on {smi}")
     rows = {name: {"ms": times["primary", name], "plain_ms": plain[name],
                    "bound": bounds["primary"][:2]}
             for name in BATCH_ENGINES}
@@ -2592,6 +2660,8 @@ def main():
                              f"{batch_launches}")
     mark("13 renders")
     btables = {name: rv.tables for name, rv in batch_r.items()}
+    log("[13] batch_kernel: " + batch_ptxas(
+        b.log, btables["packet_bdl"].max_depth))
     phase_batch_twins(btables, secondary, entries)
     mark("13 slices")
     phase_batch_lbvh(lbvh_tables, lbvh_res, batch, WIDTH, HEIGHT)

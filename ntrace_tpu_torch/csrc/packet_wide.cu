@@ -228,26 +228,6 @@ __device__ __forceinline__ bool frustum_hit(const Frustum& f,
            && fmaxf(ent, f.tn_lo) * kSlabLo <= fminf(ext, ptmax) * kSlabHi;
 }
 
-// Stage triangle row `row` into `dst` with cp.async: lane c < chunks copies
-// 16-byte chunk c. One commit group per call (empty in the other lanes).
-__device__ __forceinline__ void fetch_row(float4* dst, const float* tris,
-                                          int row, int chunks, int lane) {
-    if (lane < chunks) {
-        const unsigned s = static_cast<unsigned>(
-            __cvta_generic_to_shared(dst + lane));
-        const float* src = tris + static_cast<size_t>(row) * kRowLanes
-                           + 4 * lane;
-        asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n"
-                     :: "r"(s), "l"(src) : "memory");
-    }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void wait_rows() {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
-}
-
 // One packet: rays [32 * pk, 32 * pk + 32) of the batch.
 template <bool kAnyHit, bool kExact>
 __device__ __forceinline__ void trace_one_packet(
@@ -383,9 +363,9 @@ __device__ __forceinline__ void trace_one_packet(
                         fetch_row(sm.rows[(i + 1) % kRowBufs], tris,
                                   min(next >> 5, n_tri_rows - 1), chunks,
                                   lane);
-                        wait_rows<1>();
+                        wait_async<1>();
                     } else {
-                        wait_rows<0>();
+                        wait_async<0>();
                     }
                     __syncwarp();   // every lane's chunks of row i landed
                     if (live) {
@@ -401,7 +381,7 @@ __device__ __forceinline__ void trace_one_packet(
                     q = nq;
                     entry = next;
                 }
-                wait_rows<0>();     // nothing in flight past the phase
+                wait_async<0>();    // nothing in flight past the phase
                 qn = 0;
             }
         }

@@ -1,7 +1,8 @@
 // Device code shared by the BVH traversal kernels (packet_trace.cu,
 // packet_ww.cu, packet_ifif.cu, packet_pipe.cu, packet_wide.cu,
 // packet_batch.cuh): the ray and hit records, the table decode, the slab
-// test and the Moller-Trumbore row test (from device or shared memory).
+// test, the Moller-Trumbore row test (from device or shared memory) and
+// the cp.async staging of rows and records into shared memory.
 //
 // Numerics: the slab test follows packet_pallas.py:_slab_child (73-96)
 // and the triangle test packet_pallas.py:186-201, op for op, as
@@ -188,6 +189,39 @@ __device__ __forceinline__ void test_row_shared(const float* row, int tpr,
         test_slot(a.x, a.y, b.x, b.y, c.x, c.y, d.x, d.y, e.x,
                   static_cast<int>(e.y), r, hit);
     }
+}
+
+// Asynchronous copies into shared memory (cp.async, sm_80 and later; the
+// packet_wide and node-batch kernels stage node records and triangle rows
+// with them). cp_async16 starts one 16-byte copy (`dst` and `src` 16-byte
+// aligned) that waits in the thread's open group; commit_async closes the
+// group, and wait_async<n> waits until at most n of the thread's groups
+// are still in flight. A copy is visible to the other lanes of a warp
+// after the waits and a __syncwarp.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n"
+                 :: "r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void commit_async() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void wait_async() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
+}
+
+// Stage triangle row `row` into `dst` with cp.async: lane c < chunks copies
+// 16-byte chunk c (chunks = ceil(10 tris_per_row / 4), the row's used
+// bytes). One commit group per call (empty in the other lanes).
+__device__ __forceinline__ void fetch_row(float4* dst, const float* tris,
+                                          int row, int chunks, int lane) {
+    if (lane < chunks)
+        cp_async16(dst + lane, tris + static_cast<size_t>(row) * kRowLanes
+                               + 4 * lane);
+    commit_async();
 }
 
 // Miss convention of the reference: tri -1, t = tmax, u = v = 0 (the hit

@@ -52,21 +52,25 @@ SIGNATURES = {
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     ),
     # packet_bfs.cu, packet_dleaf.cu, packet_bdl.cu: the traversal
-    # arguments, then rows; drain_min; qgroup and merge_sibs
-    # (trace/packet_batch.py:launch_batch).
+    # arguments, then rows; drain_min; qgroup and merge_sibs; then the
+    # stack's entries (trace/packet_batch.py:launch_batch). Each also
+    # exports NAME_occupancy(any_hit, rows, qgroup, stack, int out[3]).
     "ntrace_packet_bfs": (
-        ctypes.c_int,
-        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
-    ),
-    "ntrace_packet_dleaf": (
         ctypes.c_int,
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     ),
+    "ntrace_packet_dleaf": (
+        ctypes.c_int,
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+         _P],
+    ),
     "ntrace_packet_bdl": (
         ctypes.c_int,
-        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
-         _P, _P],
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+         _P, _P, _P],
     ),
+    **{f"ntrace_packet_{k}_occupancy": (ctypes.c_int, [_I, _I, _I, _I, _P])
+       for k in ("bfs", "dleaf", "bdl")},
     "ntrace_dense_walk": (
         ctypes.c_int,
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],

@@ -22,8 +22,15 @@ Per step a packet:
     (first row, rows) in that order, merged with the sibling's when
     merge_sibs is set and the two runs are contiguous
     (packet_bdl.py:301-328); a run of no rows is dropped;
-  - bfs: every live ray of the packet tests every row of every run of the
-    step (packet_bfs.py:236-278);
+  - bfs: each warp's live rays test every row of the step's runs that the
+    warp's wants mask selects. The reference tests every run on the whole
+    packet (packet_bfs.py:236-278), whose TPU sublanes run in lockstep.
+    Closest hits and any-hit tri >= 0 are the same either way: the slab
+    test is conservative at the stale t, so a ray still tests the leaf
+    whose box holds its hit. Which triangle an any-hit ray holds when
+    its packet stops can differ: a spatial split references a triangle
+    from several leaves, each box clipped, and a row of a leaf the warp
+    did not want may hold a triangle the ray hits outside that box;
   - dleaf, bdl: each run goes onto the queue of each group of `qgroup` warps
     (dleaf: one warp) that wants it, `pending` counting the queued rows;
     then drains run while pending >= drain_min, or while the stack is empty
@@ -32,7 +39,8 @@ Per step a packet:
     row of it against the group's live rays; a group with nothing queued
     sits the drain out;
   - any hit: once every ray of the packet holds a hit or is dead, the
-    packet stops (packet_bdl.py:363-366).
+    packet stops (packet_bdl.py:363-366). The kernel tests this at the
+    first barrier of the next step, after the same leaf work.
 MAX_STEPS is a backstop on malformed trees, per packet.
 
 The stack cannot overflow: its size (Schedule.stack) is what the
@@ -64,6 +72,7 @@ every ray: the slab test is conservative and the (t, id) fold order-free.
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 
 import torch
@@ -169,7 +178,9 @@ def launch_batch(sched: Schedule, tables, orig, dirn, tmin, tmax, any_hit,
                  rows, qgroup, dmin, merge_sibs, outs):
     """One launch of the schedule's entry point on the current CUDA stream;
     raises on a launch error. bfs takes rows; dleaf rows and drain_min;
-    bdl rows, drain_min, qgroup and merge_sibs."""
+    bdl rows, drain_min, qgroup and merge_sibs; each then the stack's
+    entries, stack_need(max_depth), which sizes the block's shared
+    memory."""
     from ntrace_tpu_torch.kernels.build import library
 
     for t in (tables.nodes8, tables.tris12):
@@ -186,9 +197,26 @@ def launch_batch(sched: Schedule, tables, orig, dirn, tmin, tmax, any_hit,
             orig.data_ptr(), dirn.data_ptr(), tmin.data_ptr(),
             tmax.data_ptr(), orig.shape[0], tables.nodes_per_row,
             tables.tris_per_row, int(any_hit), *extra[sched.entry],
+            sched.stack_need(tables.max_depth),
             *(o.data_ptr() for o in outs), stream)
     if rc != 0:
         raise RuntimeError(f"{sched.entry} launch failed: CUDA error {rc}")
+
+
+def occupancy(sched: Schedule, max_depth: int, any_hit: bool, rows: int,
+              qgroup: int = 1) -> tuple[int, int, int]:
+    """What a launch on tables of depth max_depth runs, from the CUDA
+    runtime on the current device: (registers a thread, shared memory a
+    block in bytes, resident blocks an SM)."""
+    from ntrace_tpu_torch.kernels.build import library
+
+    out = (ctypes.c_int * 3)()
+    rc = getattr(library(), sched.entry + "_occupancy")(
+        int(any_hit), rows, qgroup, sched.stack_need(max_depth), out)
+    if rc != 0:
+        raise RuntimeError(f"{sched.entry}_occupancy failed: CUDA error "
+                           f"{rc}")
+    return tuple(out)
 
 
 def packet_signs(d: torch.Tensor) -> torch.Tensor:
@@ -252,10 +280,13 @@ def trace_batch_ref(sched: Schedule, tables: PackedTables, orig, dirn, tmin,
                     merge_sibs: bool = False, work: dict | None = None):
     """Plain torch twin of the schedule's kernel, on any device. `work`,
     when given, counts ray node visits (each live ray of a packet, for each
-    node the packet pops) into work["node_visits"] and triangle slot tests
+    node the packet pops) into work["node_visits"], triangle slot tests
     (live rays times tested rows times tris_per_row) into
-    work["tri_slot_tests"], and marks the node records and triangle rows
-    read where it comes from packet_common.work_with_reads.
+    work["tri_slot_tests"], steps summed over packets into
+    work["packet_steps"], and, for dleaf and bdl, drains summed over
+    packets into work["packet_drains"] and rows tested in drains summed
+    over groups into work["drain_rows"]; it marks the node records and
+    triangle rows read where it comes from packet_common.work_with_reads.
 
     Each lockstep iteration is one step of every packet still walking:
     the pops, slab tests and routing of the kernel, vectorized over the
@@ -268,11 +299,12 @@ def trace_batch_ref(sched: Schedule, tables: PackedTables, orig, dirn, tmin,
     rows, qgroup, dmin = knobs(sched, rows, qgroup, drain_min)
     r = orig.shape[0]
     start_work(work)
+    if work is not None:
+        for key in ("packet_steps", "packet_drains", "drain_rows"):
+            work.setdefault(key, 0)
     if not r:
         return hit_outputs(orig)
-    # bfs tests every run against the whole packet: one group of all rows.
-    s = _Packets(sched, orig, dirn, tmin, tmax, rows,
-                 qgroup if sched.queued else rows)
+    s = _Packets(sched, orig, dirn, tmin, tmax, rows, qgroup)
     nodes = tables.nodes8.reshape(-1)
     lanes16 = torch.arange(16, device=orig.device)
     act = torch.ones(s.P, dtype=torch.bool, device=orig.device)
@@ -291,9 +323,15 @@ def trace_batch_ref(sched: Schedule, tables: PackedTables, orig, dirn, tmin,
             top[1] = torch.maximum(top[1], s.qn[a].max())
             _drains(s, a, tables, dmin, work)
         elif bool(runs[3].any()):
-            row0, n, _, take = runs
-            _test_pairs(s, tables, *_expand(a, torch.zeros_like(a), row0,
-                                            torch.where(take, n, 0)), work)
+            # bfs: each warp (a group of one) tests the runs it wants.
+            row0, n, w, take = runs
+            A, K = take.shape
+            n = torch.where(take[:, None, :] & w.transpose(1, 2),
+                            n[:, None, :], 0)                  # (A, rows, K)
+            _test_pairs(s, tables, *_expand(
+                a.repeat_interleave(rows),
+                torch.arange(rows, device=a.device).repeat(A),
+                row0.repeat_interleave(rows, 0), n.reshape(-1, K)), work)
         sp, pend = s.sp[a], s.pending[a]
         if any_hit:
             done = ((s.hid[a] >= 0) | ~s.live[a]).all(1)
@@ -302,6 +340,8 @@ def trace_batch_ref(sched: Schedule, tables: PackedTables, orig, dirn, tmin,
         # Every packet walks from the first step until it stops, so its
         # step count is the loop's.
         steps += 1
+        if work is not None:
+            work["packet_steps"] += a.numel()
         act[a] = ((sp > 0) | (pend > 0)) & (steps < sched.max_steps)
     depth, queued = top.tolist()
     if depth > sched.stack or queued > QCAP:
@@ -466,6 +506,9 @@ def _drains(s: _Packets, a, tables, dmin: int, work):
     go = (pend >= dmin) | (empty & (pend > 0))
     drains = (~go).to(torch.int8).argmax(1)                # first stop
     k = torch.minimum(left, drains[:, None])               # rows by group
+    if work is not None:
+        work["packet_drains"] += int(drains.sum())
+        work["drain_rows"] += int(k.sum())
     cum = torch.cumsum(n, 2)
     used = (k[..., None] - (cum - n)).clamp(min=0).minimum(n)
     _test_pairs(s, tables, *_expand(

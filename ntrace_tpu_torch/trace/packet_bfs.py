@@ -7,10 +7,11 @@ kernel 52-301), the engine "packet_bfs". Same contract as
 t, tri -1 / t = tmax / u = v = 0 on a miss; in any-hit mode a packet stops
 once every ray of it holds a hit or is dead.
 
-A packet of `rows` warps shares one stack of 4,096 nodes; each step pops
-up to 8 nodes, every ray slab-tests their 16 children, the packet's OR
-routes them, and every ray tests every row of the step's hit leaves
-(trace/packet_batch.py has the schedule, csrc/packet_bfs.cu the kernel).
+A packet of `rows` warps shares one stack of up to 4,096 nodes; each step
+pops up to 8 nodes, every ray slab-tests their 16 children, the packet's
+OR routes them, and each warp tests the rows of the step's hit leaves
+that its own rays want (trace/packet_batch.py has the schedule,
+csrc/packet_bfs.cu the kernel).
 Tables need nodes_per_row == 1 and a tree no deeper than 255. Rays on a
 CUDA device go through the kernel, rays on the CPU through
 `trace_packet_bfs_ref`. Nothing falls back.
