@@ -19,7 +19,10 @@ deferred-leaf and combined packet kernels.
 
 Phases, each printed as it completes:
   1. versions, card name and power limit (nvidia-smi)
-  2. build the CUDA kernels from ntrace_tpu_torch/csrc with nvcc
+  2. build the CUDA kernels from ntrace_tpu_torch/csrc with nvcc, and the
+     while-while kernels again with every step of their redesign taken
+     out (PARENT_SCHEDULE, the parent's schedule); ptxas's registers,
+     stack frame and spills of both builds' packet_ww and packet_pipe
   3. kernel against its torch twin on the card: a 5,000-triangle random
      soup, 65,536 random rays, tables packed as (tris_per_row,
      nodes_per_row) = (12, 1) and (4, 8); closest-hit tri/t/u/v bit-equal
@@ -61,12 +64,16 @@ Phases, each printed as it completes:
      each; all four modes rendered with engine packet_ww and packet_ifif,
      every pass on phase 8's rays, closest hits equal to the packet
      kernel's on tri/t/u/v on every ray, any hits on tri >= 0, images
-     bit-equal to phase 8's; each kernel (packet too) bit-equal to its
-     twin on a 65,536-ray stride sample of every batch; the times of
-     packet, ww and ifif on the primary, shadow, AO and diffuse batches,
-     beside one bound per batch: the least work any of the three twins
-     counts on it (full counts on the primary frame, the sample scaled up
-     on the others); the twins on the primary frame
+     bit-equal to phase 8's; ww against the parent's schedule on the
+     primary, shadow, AO and diffuse batches (closest hits bit-equal, any
+     hits tri >= 0, the any-hit rays whose tri changed counted); each
+     kernel (packet too) bit-equal to its twin on a 65,536-ray stride
+     sample of every batch; the times of packet, ww and ifif on the
+     primary, shadow, AO and diffuse batches, beside one bound per batch:
+     the least work any of the three twins counts on it (full counts on
+     the primary frame, the sample scaled up on the others), and each
+     twin's node visits and slot tests a ray; the twins on the primary
+     frame
  10. BASELINE config #4: the hairball (2,900,402 tris) with
      builder="lbvh", built on the card through the row-scan kernel, and
      render(mode="ao") through the packet kernel; 128 AO rays against
@@ -79,13 +86,18 @@ Phases, each printed as it completes:
      closest hits equal to the packet kernel's on every ray (for
      packet_wide: but rays brute_force_mt decides for it), any hits on
      tri >= 0, images bit-equal (but one pixel per decided ray); pipe
-     bit-equal to its twin on the 65,536-ray samples, wide on a
-     contiguous slice of whole packets sized by its twin's time (both
-     exact modes, each mode's work logged); times of packet, pipe and
-     wide (both exact modes, one warp a packet and a persistent-warps
-     build of the same source, whose hits must be equal) on the primary,
-     shadow, AO and diffuse batches beside one bound per batch over the
-     five twins; wide's registers and shared memory from ptxas;
+     against the parent's schedule as ww in phase 9; pipe bit-equal to
+     its twin on the 65,536-ray samples (with the share of node steps
+     whose early-issued record was the one taken), wide on a contiguous
+     slice of whole packets sized by its twin's time (both exact modes,
+     each mode's work logged); ww's and pipe's twins within 2% of the
+     packet twin's node visits and slot tests on the full primary frame;
+     times of packet, pipe and wide (both exact modes, one warp a packet
+     and a persistent-warps build of the same source, whose hits must be
+     equal) on the primary, shadow, AO and diffuse batches beside one
+     bound per batch over the five twins, packet's and pipe's beside
+     their twins' node visits and slot tests a ray; wide's registers and
+     shared memory from ptxas;
      the hairball's wide tables refused (2**19 triangle rows); the count of
      rays decided by brute force (0 expected: the slab test is
      conservative)
@@ -1132,6 +1144,202 @@ def same_rays(a, b) -> bool:
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+# -- the while-while kernels' parent schedule (phases 2, 9 and 11) ----------
+
+WW_SOURCES = ("packet_ww.cu", "packet_pipe.cu")
+# packet_ww's and packet_pipe's twins count the packet twin's node visits
+# and slot tests on the full primary frame, within this share (phase 11).
+WW_WORK_RTOL = 0.02
+WW_ENTRIES = ("ntrace_packet_ww", "ntrace_packet_pipe")
+# Text patches (old, new; each old text occurs once in its source) that
+# take a step of the while-while redesign out of csrc/packet_ww.cu and
+# csrc/packet_pipe.cu again, or put a step that was tried back in.
+# scripts/ww_ab.py times each; phase 2 builds the parent's schedule
+# (PARENT_SCHEDULE: every step out), whose any-hit triangles phases 9 and
+# 11 count the change against.
+def queue_capacity(cap: int) -> tuple:
+    """The leaf queue sized for `cap` runs."""
+    return (("    RunQueue<2> queue;\n", f"    RunQueue<{cap}> queue;\n"),)
+
+
+# Step 1 out: the node loop pauses at QCAP - 2 = 30 queued runs, in a
+# queue of QCAP = 32.
+PAUSE_AT_30 = queue_capacity(32) + (("item != kDone && queue.n == 0)",
+                                     "item != kDone && queue.n < 30)"),)
+# Step 3 out (pipe): the loads of child 0's, child 1's and the stack top's
+# records issued before the slab tests, the next record picked from them.
+THREE_RECORDS = (
+    ("""            // 1. issue the load of the likeliest next record
+            const int guess = !l0 && !l1 ? (first0 ? enc0 : enc1)
+                              : !l0      ? enc0
+                              : !l1      ? enc1
+                                         : top;
+            float pre[kNodeLanes];
+            if (guess != kDone) load_node(nodes, guess, npr, pre);
+""", """            // 1. issue the loads of every possible next record
+            float row_a[kNodeLanes], row_b[kNodeLanes], row_s[kNodeLanes];
+            if (enc0 >= 0) load_node(nodes, enc0, npr, row_a);
+            if (enc1 >= 0) load_node(nodes, enc1, npr, row_b);
+            if (top != kDone) load_node(nodes, top, npr, row_s);
+"""),
+    ("""            // 3. the next record: the one in flight, or a late load
+            if (next != kDone) {
+                if (next == guess) {
+#pragma unroll
+                    for (int k = 0; k < kNodeLanes; ++k) rec[k] = pre[k];
+                } else {
+                    load_node(nodes, next, npr, rec);
+                }
+            }
+""", """            // 3. the next carried record, from the loaded ones
+            if (next == enc0 && !l0) {
+#pragma unroll
+                for (int k = 0; k < kNodeLanes; ++k) rec[k] = row_a[k];
+            } else if (next == enc1 && !l1) {
+#pragma unroll
+                for (int k = 0; k < kNodeLanes; ++k) rec[k] = row_b[k];
+            } else if (next != kDone) {
+#pragma unroll
+                for (int k = 0; k < kNodeLanes; ++k) rec[k] = row_s[k];
+            }
+"""))
+# Tried (pipe): the leaf loop prefetches the next row into L1 before it
+# tests the current one.
+ROW_PREFETCH = (
+    ("using namespace ntrace;\n", """using namespace ntrace;
+
+// L1 prefetch of the used lanes of triangle row `row` (tpr * 40 bytes).
+__device__ __forceinline__ void prefetch_row(const float* tris, int row,
+                                             int tpr) {
+    const char* p = reinterpret_cast<const char*>(
+        tris + static_cast<size_t>(row) * kRowLanes);
+    const int bytes = tpr * kTriLanes * 4;
+    for (int b = 0; b < bytes; b += 128) {
+        asm volatile("prefetch.global.L1 [%0];" ::"l"(p + b));
+    }
+}
+"""),
+    ("""            test_row(tris, queue.front() >> 5, tpr, ray, hit);
+            queue.advance();
+""", """            const int entry = queue.front();
+            queue.advance();
+            if (queue.n > 0) prefetch_row(tris, queue.front() >> 5, tpr);
+            test_row(tris, entry >> 5, tpr, ray, hit);
+"""))
+# Every step out: the parent's schedule and fetches (pause at 30 runs;
+# pipe's three records and row prefetch).
+PARENT_SCHEDULE = {
+    "packet_ww.cu": PAUSE_AT_30,
+    "packet_pipe.cu": PAUSE_AT_30 + THREE_RECORDS + ROW_PREFETCH,
+}
+
+
+def patched_sources(name: str, patches: dict, csrc, out):
+    """Write a build's while-while sources into out/<slug>/ (csrc's, each
+    patched by patches.get(source)) with csrc's trace_common.cuh; returns
+    that directory."""
+    d = out / "".join(c if c.isalnum() else "_" for c in name)
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "trace_common.cuh").write_text(
+        (csrc / "trace_common.cuh").read_text())
+    for src in WW_SOURCES:
+        text = (csrc / src).read_text()
+        for old, new in patches.get(src, ()):
+            if text.count(old) != 1:
+                raise AssertionError(f"{name} {src}: patch text occurs "
+                                     f"{text.count(old)} times, not once:\n"
+                                     f"{old}")
+            text = text.replace(old, new)
+        (d / src).write_text(text)
+    return d
+
+
+def build_while_while(dirs: dict):
+    """One nvcc a while-while source of every build in `dirs` (name ->
+    directory from patched_sources), all at once, with kernels/build.py's
+    flags; one link a build. Returns {name: library with ntrace_packet_ww
+    and ntrace_packet_pipe bound}, nvcc's seconds and {name: ptxas log}."""
+    t0 = time.perf_counter()
+    jobs = [(name, d / f"{src[:-3]}.o", d / src) for name, d in dirs.items()
+            for src in WW_SOURCES]
+    done = kbuild._run_all([[kbuild.nvcc(), *kbuild.NVCC_FLAGS, "-I",
+                             str(dirs[name]), "-c", "-o", str(o), str(s)]
+                            for name, o, s in jobs])
+    logs = {name: "" for name in dirs}
+    for (name, _, _), (rc, out) in zip(jobs, done):
+        logs[name] += out
+        if rc:
+            raise RuntimeError(f"nvcc failed on {name}:\n{out}")
+    paths = {name: d / f"libww_{os.getpid()}.so" for name, d in dirs.items()}
+    done = kbuild._run_all([[kbuild.nvcc(), *kbuild.ARCH, "-shared", "-o",
+                             str(paths[name]),
+                             *(str(d / f"{src[:-3]}.o") for src in WW_SOURCES)]
+                            for name, d in dirs.items()])
+    if any(rc for rc, _ in done):
+        raise RuntimeError("link failed:\n" + "".join(o for _, o in done))
+    libs = {}
+    for name, path in paths.items():
+        lib = ctypes.CDLL(str(path))
+        for entry in WW_ENTRIES:
+            fn = getattr(lib, entry)
+            fn.restype, fn.argtypes = kbuild.SIGNATURES[entry]
+        libs[name] = lib
+    return libs, time.perf_counter() - t0, logs
+
+
+def ww_ptxas(log: str) -> str:
+    """ptxas's registers, stack frame and spill bytes of each
+    packet_ww_kernel and packet_pipe_kernel instantiation in a build log."""
+    out = []
+    for m in re.finditer(
+            r"Compiling entry function '\w*?(packet_(?:ww|pipe))_kernel"
+            r"ILb(\d)E\w*'.*?(\d+) bytes stack frame, (\d+) bytes spill "
+            r"stores, (\d+) bytes spill loads.*?Used (\d+) registers", log,
+            re.DOTALL):
+        out.append(f"{m.group(1)} any_hit={m.group(2)}: {m.group(6)} "
+                   f"registers, {m.group(3)} B stack frame, spills "
+                   f"{m.group(4)}/{m.group(5)} B")
+    return "; ".join(out) or "not in this build's log (library reused)"
+
+
+def parent_schedule_library():
+    """Phase 2: the while-while kernels built with every step of the
+    redesign taken out (PARENT_SCHEDULE), into the ignored build
+    directory. Returns the library, nvcc's seconds and its ptxas log."""
+    d = patched_sources("parent schedule", PARENT_SCHEDULE, kbuild.CSRC_DIR,
+                        kbuild.BUILD_DIR / "ww_parent")
+    libs, secs, logs = build_while_while({"parent": d})
+    return libs["parent"], secs, logs["parent"]
+
+
+def any_hit_against_parent(tag, tables, secondary, parent, engine):
+    """Phases 9 and 11: `engine` (packet_ww or packet_pipe) against the
+    parent's schedule (PARENT_SCHEDULE) on the full primary, shadow, AO and
+    diffuse batches: closest hits bit-equal, any hits tri >= 0 equal; logs
+    on how many any-hit rays the triangle changed."""
+    kernel = ALL_ENGINES[engine][0]
+    batches = {"primary": secondary["shadow"][1]["primary"][:2]}
+    batches.update({m: secondary[m][1][m][:2]
+                    for m in ("shadow", "ao", "diffuse")})
+    changed = []
+    for bname, (rays, any_hit) in batches.items():
+        new = kernel(tables, *rays, any_hit=any_hit)
+        with kernel_library(parent):
+            old = kernel(tables, *rays, any_hit=any_hit)
+        label = f"{tag} {engine} {bname}: against the parent's schedule"
+        if not any_hit:
+            compare(new, old, label)
+            continue
+        if not torch.equal(new[0] >= 0, old[0] >= 0):
+            raise AssertionError(f"{label}: tri>=0 differs")
+        changed.append(f"{bname} {int((new[0] != old[0]).sum())} of "
+                       f"{rays[0].shape[0]}")
+    log(f"{tag} {engine} against the parent's schedule (pause at 30 runs, "
+        "every step out): closest hits bit-equal on the primary and "
+        "diffuse batches, any hits tri>=0 equal; any-hit tri changed on "
+        + ", ".join(changed) + " rays")
+
+
 def phase_variant_renders(r, secondary):
     """Phase 9: every secondary mode rendered with engine packet_ww and
     packet_ifif on phase 4's scene and BVH. Each pass traces the same rays
@@ -1201,6 +1409,8 @@ def phase_variant_twins(tables, secondary, engines=ENGINES, tag="[9]"):
         works[bname] = (scale, {})
         for engine, (kernel, twin, *_) in engines.items():
             work = work_with_reads(tables)
+            if engine == "packet_pipe":
+                work.update(fetch_steps=0, fetch_predicted=0)
             t0 = time.perf_counter()
             tw = twin(tables, *sample, any_hit=any_hit, work=work)
             twin_s = time.perf_counter() - t0
@@ -1212,8 +1422,26 @@ def phase_variant_twins(tables, secondary, engines=ENGINES, tag="[9]"):
                 f"({'any' if any_hit else 'closest'} hit, tri included; "
                 f"twin {twin_s:.2f} s); per ray "
                 f"{work['node_visits'] / len(sample[0]):.2f} node visits, "
-                f"{work['tri_slot_tests'] / len(sample[0]):.2f} slot tests")
+                f"{work['tri_slot_tests'] / len(sample[0]):.2f} slot tests"
+                + early_fetch(work))
     return works
+
+
+def early_fetch(work: dict) -> str:
+    """The pipe twin's share of node steps whose next node was the record
+    csrc/packet_pipe.cu fetched before the slab tests, where counted."""
+    if "fetch_steps" not in work:
+        return ""
+    return (f"; the early-issued record taken on {work['fetch_predicted']} "
+            f"of {work['fetch_steps']} node steps that go on to a node "
+            f"({work['fetch_predicted'] / max(work['fetch_steps'], 1):.4f})")
+
+
+def per_ray(w: dict, scale: float, rays: int) -> str:
+    """A twin's node visits and slot tests a ray on a batch of `rays`, from
+    its work on a sample (`scale` times fewer rays) or the whole batch."""
+    return (f"its twin's {w['node_visits'] * scale / rays:.2f} node visits, "
+            f"{w['tri_slot_tests'] * scale / rays:.2f} slot tests a ray")
 
 
 def phase_variant_timing(tables, primary, secondary, works, smi):
@@ -1253,7 +1481,8 @@ def phase_variant_timing(tables, primary, secondary, works, smi):
             times[bname, engine] = ms
             log(f"[9] {bname} batch: {engine} median {ms:.4f} ms of 10 (min "
                 f"{min(t):.4f}, max {max(t):.4f}) = {R / ms / 1e3:.2f} "
-                f"Mrays/s, {ms / b:.1f}x the batch's bound; on {smi}")
+                f"Mrays/s, {ms / b:.1f}x the batch's bound; "
+                + per_ray(bw[engine], scale, R) + f"; on {smi}")
     rows = {}
     for engine in VARIANTS:
         twin = ENGINES[engine][1]
@@ -1639,11 +1868,24 @@ def phase_new_timing(tables, wt, primary, secondary, entries, full, smi,
     for engine in NEW_ENGINES:
         tb = wt if engine == "packet_wide" else tables
         w = work_with_reads(tb)
+        if engine == "packet_pipe":
+            w.update(fetch_steps=0, fetch_predicted=0)
         ALL_ENGINES[engine][1](tb, *primary, work=w)
         full[engine] = (tb, w, 1.0)
     log("[11] primary frame, full counts: " + "; ".join(
         f"{e} {w['node_visits']} node visits, {w['tri_slot_tests']} slot "
-        f"tests" for e, (_, w, _) in full.items()))
+        f"tests" for e, (_, w, _) in full.items())
+        + "; packet_pipe" + early_fetch(full["packet_pipe"][1]))
+    packet = full["packet"][1]
+    for engine in ("packet_ww", "packet_pipe"):
+        w = full[engine][1]
+        ratio = [w[k] / packet[k] for k in ("node_visits", "tri_slot_tests")]
+        if max(abs(x - 1) for x in ratio) > WW_WORK_RTOL:
+            raise AssertionError(f"[11] {engine} primary frame: node visits "
+                                 f"and slot tests {ratio} x the packet "
+                                 "twin's, beyond 2%")
+        log(f"[11] {engine} primary frame: node visits {ratio[0]:.4f}x, "
+            f"slot tests {ratio[1]:.4f}x the packet twin's (within 2%)")
     batches = {"primary": (primary, False, full),
                "shadow": secondary["shadow"][1]["shadow"][:2]
                + (entries["shadow"],),
@@ -1691,10 +1933,12 @@ def phase_new_timing(tables, wt, primary, secondary, entries, full, smi,
         for name, t in samples.items():
             ms = statistics.median(t)
             times[bname, name] = ms
+            own = ("; " + per_ray(ent[name][1], ent[name][2], R)
+                   if name in ("packet", "packet_pipe") else "")
             log(f"[11] {bname} batch: {name} median {ms:.4f} ms of {len(t)} "
                 f"(min {min(t):.4f}, max {max(t):.4f}) = "
                 f"{R / ms / 1e3:.2f} Mrays/s, {ms / b:.1f}x the batch's "
-                f"bound; on {smi}")
+                f"bound{own}; on {smi}")
         log(f"[11] {bname} batch: packet_wide one warp a packet / "
             f"persistent warps: exact=False "
             f"{times[bname, 'packet_wide']:.4f} / "
@@ -2587,6 +2831,9 @@ def main():
     ptxas = [ln.strip() for ln in b.log.splitlines()
              if "registers" in ln or "stack frame" in ln]
     log(f"[2] built {b.path.name} in {b.seconds:.1f} s; " + " | ".join(ptxas))
+    ww_parent, secs, plog = parent_schedule_library()
+    log(f"[2] while-while ptxas: {ww_ptxas(b.log)}; the parent's schedule "
+        f"(every step out, built in {secs:.1f} s): {ww_ptxas(plog)}")
 
     device = torch.device("cuda")
     phase_soup(device)
@@ -2612,6 +2859,8 @@ def main():
     secondary = phase_secondary(r, smi)
     phase_soup_variants(device)
     variant_launches = phase_variant_renders(r, secondary)
+    any_hit_against_parent("[9]", r.tables, secondary, ww_parent,
+                           "packet_ww")
     works = phase_variant_twins(r.tables, secondary)
     _, variant_rows, full_counts = phase_variant_timing(
         r.tables, (batch.orig, batch.dirn, batch.tmin, batch.tmax),
@@ -2627,6 +2876,9 @@ def main():
     log(f"[11] rays decided by brute_force_mt over every packet_wide pass: "
         f"{decided}")
     wt = new_r["packet_wide"].tables
+    any_hit_against_parent("[11]", r.tables, secondary, ww_parent,
+                           "packet_pipe")
+    del ww_parent
     pipe = {"packet_pipe": NEW_ENGINES["packet_pipe"]}
     pipe_works = phase_variant_twins(r.tables, secondary, pipe, "[11]")
     entries = {b: {e: (r.tables, w, scale)

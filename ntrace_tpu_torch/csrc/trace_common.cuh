@@ -1,8 +1,9 @@
 // Device code shared by the BVH traversal kernels (packet_trace.cu,
 // packet_ww.cu, packet_ifif.cu, packet_pipe.cu, packet_wide.cu,
 // packet_batch.cuh): the ray and hit records, the table decode, the slab
-// test, the Moller-Trumbore row test (from device or shared memory) and
-// the cp.async staging of rows and records into shared memory.
+// test, the Moller-Trumbore row test (from device or shared memory), the
+// cp.async staging of rows and records into shared memory, and the
+// while-while kernels' leaf queue.
 //
 // Numerics: the slab test follows packet_pallas.py:_slab_child (73-96)
 // and the triangle test packet_pallas.py:186-201, op for op, as
@@ -240,6 +241,33 @@ __device__ __forceinline__ void store_hit(const Hit& h, int r, int* out_tri,
 __device__ __forceinline__ int run_entry(int enc, int cnt) {
     return (-enc - 1) * 32 + min(max(cnt - 1, 0), 31);
 }
+
+// The leaf queue of the while-while kernels (packet_ww.cu, packet_pipe.cu):
+// up to kCap runs (run_entry values), the top run last, in an array indexed
+// by the count (ptxas places it in local memory, beside the stack). A node
+// step queues at most two runs, child 0's first, and their node loop pauses
+// once a step has queued one, so they use kCap = 2. Two registers and a
+// count, or one 64-bit register, measured 2-4% slower on packet_ww's
+// primary, shadow and AO batches and alike on the rest (scripts/ww_ab.py).
+template <int kCap>
+struct RunQueue {
+    int n = 0;       // runs queued
+    int run[kCap];
+
+    __device__ __forceinline__ void push(int entry) { run[n++] = entry; }
+    // The run whose next row is tested next (n > 0).
+    __device__ __forceinline__ int front() const { return run[n - 1]; }
+    // The top run's next row was tested: the run moves on one row
+    // (entry + 31: first row + 1, rows left - 1), or, on its last row,
+    // leaves the queue.
+    __device__ __forceinline__ void advance() {
+        if (run[n - 1] & 31) {
+            run[n - 1] += 31;
+        } else {
+            --n;
+        }
+    }
+};
 
 }  // namespace ntrace
 

@@ -1,4 +1,5 @@
-"""Pipelined while-while BVH traversal: the CUDA kernel and its torch twin.
+"""While-while traversal with an early-issued node fetch: the CUDA kernel
+and its torch twin.
 
 Counterpart of ntrace_tpu/trace/packet_pipe.py:trace_packet_pipe (273-330,
 kernel 51-264). Same contract and tables as `trace/packet_ww.py`: orig/dirn
@@ -6,25 +7,24 @@ kernel 51-264). Same contract and tables as `trace/packet_ww.py`: orig/dirn
 lowest triangle id on a tie in t, the reference's miss record; any-hit
 stops a ray at its first accepted hit; a dead ray is a miss at once.
 
-The schedule is the reference's software-pipelined while-while, per ray
-(csrc/packet_pipe.cu says how it maps to Hopper):
-  - the node loop carries the current node's record; a step issues the
-    loads of child 0, child 1 and the stack top before it slab-tests the
-    carried record, then takes the next record from those three (a popping
-    step never pushes, so the pre-step top is the pop target);
+The schedule is packet_ww's while-while, per ray (csrc/packet_pipe.cu says
+how it maps to Hopper), with what sets the reference's pipelined engine
+apart:
   - near/far comes from the pack-time order code in the cnt0 lane
     (packet_pipe.py:123-128) and the ray's own direction octant, the
     packet of one ray that a thread is;
-  - hit leaves join a queue of row runs (QCAP 32 entries, the node loop
-    paused at QCAP - 2), child 0 first;
-  - the leaf loop carries (entry, row): the next entry is the run's next
-    row or the queue slot below, and the queue is never rewritten.
-The carried record is always the record of the ray's current node, and the
-carried entry is what packet_ww's in-place queue write would hold, so the
-twin runs the while-while state machine of trace/packet_ww.py with this
-near/far rule: every ray takes the kernel's steps in the kernel's order.
-Closest hits are bit-equal to trace_packet's (the fold is order-free);
-any-hit `tri` may differ from packet_ww's, whose near/far rule differs.
+  - the kernel issues the fetch of the likeliest next record before the
+    slab tests (predicted_next in trace/packet_ww.py: the code-near child
+    when both children are internal, the internal one when the other is a
+    leaf, else the stack top) and loads another only when the step takes
+    another. That changes when a record is loaded, not which nodes a ray
+    visits, so the twin runs trace/packet_ww.py's state machine with this
+    near/far rule; `work` may count how often the guess was taken;
+  - hit leaves join a queue of at most two runs, child 0 first, and the
+    node loop pauses as soon as a step queues one.
+Every ray takes the kernel's steps in the kernel's order. Closest hits are
+bit-equal to trace_packet's (the fold is order-free); any-hit `tri` may
+differ from packet_ww's, whose near/far rule differs.
 
 Rays on a CUDA device go through the kernel; rays on the CPU through
 `trace_packet_pipe_ref`. Nothing falls back.
@@ -78,8 +78,10 @@ def near_by_code(s: RayState, i: torch.Tensor, b0, b1, cnt0):
 
 def trace_packet_pipe_ref(tables: PackedTables, orig, dirn, tmin, tmax, *,
                           any_hit: bool = False, work: dict | None = None):
-    """Plain torch twin of the pipelined while-while kernel, on any device.
-    `work` counts node visits and triangle slot tests as trace_packet_ref
-    does."""
+    """Plain torch twin of the kernel, on any device. `work` counts node
+    visits and triangle slot tests as trace_packet_ref does; where it has
+    the keys "fetch_steps" and "fetch_predicted", also the node steps that
+    go on to a node and those whose next node is the record the kernel
+    fetched before the slab tests (run_while_while)."""
     return run_while_while(tables, orig, dirn, tmin, tmax, any_hit, work,
                            near_by_code)

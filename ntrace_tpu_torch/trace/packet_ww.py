@@ -7,14 +7,17 @@ registry name `tesla_persistent_while_while`. Same contract as
 t, tri -1 / t = tmax / u = v = 0 on a miss; any-hit stops a ray at its
 first accepted hit; a dead ray (tmax <= tmin) is a miss at once.
 
-The schedule is the reference's phase split, per ray (csrc/packet_ww.cu
-says why): a node loop that runs only slab tests and defers every hit leaf
-into a queue of row runs (QCAP 32 entries of first_row * 32 + rows - 1,
-paused at QCAP - 2), then a leaf loop that runs only Moller-Trumbore, one
-row per step, from the top of the queue. hitT shrinks only in the leaf
-loop, up to a queue's worth of leaves late; the closest-hit result does
-not depend on that (its acceptance is order-free), so it is bit-equal to
-trace_packet's on every ray.
+The schedule is Aila and Laine's while-while, per ray (csrc/packet_ww.cu
+says how it maps to Hopper): a node loop that runs only slab tests and
+queues each hit leaf as a row run (first_row * 32 + rows - 1, child 0
+first), then a leaf loop that runs only Moller-Trumbore, one row per step,
+from the top of the queue until it is empty. The node loop pauses as soon
+as a step queues a run, so a leaf is tested one node step after it is
+found and the hit distance shrinks before the next box test, as in the
+packet kernel; a step queues at most two runs, so the queue holds at most
+QCAP = 2. The closest-hit result does not depend on the order (its
+acceptance is order-free), so it is bit-equal to trace_packet's on every
+ray; which triangle an any-hit ray holds follows the order.
 
 Rays on a CUDA device go through the kernel; rays on the CPU through
 `trace_packet_ww_ref`, the kernel's per-ray state machine in torch with
@@ -37,7 +40,7 @@ from ntrace_tpu_torch.trace.packet_common import (DONE, MAX_STEPS,
                                                   start_work, tally,
                                                   visit_nodes)
 
-QCAP = 32          # leaf-queue entries per ray (packet_ww.py QCAP)
+QCAP = 2           # leaf-queue runs per ray: one node step queues at most 2
 
 
 def trace_packet_ww(tables: PackedTables, orig, dirn, tmin, tmax, *,
@@ -68,7 +71,9 @@ def trace_packet_ww_ref(tables: PackedTables, orig, dirn, tmin, tmax, *,
     iteration a ray in its node loop visits one node, a ray in its leaf
     loop tests one queued row. `work`, when given, counts node visits into
     work["node_visits"] and triangle slot tests (rows times
-    tris_per_row) into work["tri_slot_tests"], as trace_packet_ref does.
+    tris_per_row) into work["tri_slot_tests"], as trace_packet_ref does,
+    and the most runs a queue held into work["queue_max"] where `work`
+    has that key.
     """
     return run_while_while(tables, orig, dirn, tmin, tmax, any_hit, work,
                            near_by_entry)
@@ -83,8 +88,14 @@ def near_by_entry(s: RayState, i: torch.Tensor, b0, b1, cnt0):
 def run_while_while(tables: PackedTables, orig, dirn, tmin, tmax,
                     any_hit: bool, work: dict | None, near_first):
     """The while-while state machine shared by the ww and pipe twins.
-    near_first(s, i, b0, b1, cnt0) says, for rays i whose node has both
-    children hit and internal, whether child 0 is descended first."""
+    near_first(s, i, b0, b1, cnt0) says, for rays i, whether child 0 is
+    descended first when both children are hit and internal. A ray is in
+    its leaf loop while its queue holds a run: the node loop pauses once a
+    step queues one. Raises if a queue would hold more than QCAP runs.
+    Where `work` has the key "queue_max", it keeps the most runs a queue
+    held; where it has "fetch_steps", it also counts the node steps that go
+    on to a node, and in "fetch_predicted" those whose next node is the one
+    packet_pipe.cu loads before the slab tests (predicted_next)."""
     check_rays(tables, orig, dirn, tmin, tmax)
     check_leaf_runs(tables)
     dev = orig.device
@@ -93,39 +104,51 @@ def run_while_while(tables: PackedTables, orig, dirn, tmin, tmax,
     npr, tpr = tables.nodes_per_row, tables.tris_per_row
     out, s = start_twin(orig, dirn, tmin, tmax)
     s.item, s.sp, s.qn = s.zeros(), s.zeros(), s.zeros()
-    s.leafph = s.zeros(dtype=torch.bool)      # in the leaf loop
     s.stack, s.queue = s.zeros(STACK_DEPTH), s.zeros(QCAP)
     lanes16 = torch.arange(16, device=dev)
+    qmax = 0
     start_work(work)
     while s.ids.numel():
         # The backstop: a ray at MAX_STEPS stops where it is.
         cut = s.steps >= MAX_STEPS
         s.item[cut] = DONE
         s.qn[cut] = 0
-        inner = torch.nonzero(~s.leafph & (s.item != DONE)).squeeze(1)
-        leaf = torch.nonzero(s.leafph & (s.qn > 0)).squeeze(1)
+        inner = torch.nonzero((s.qn == 0) & (s.item != DONE)).squeeze(1)
+        leaf = torch.nonzero(s.qn > 0).squeeze(1)
         if work is not None:
             top = (s.qn[leaf] - 1).long()
             tally(work, s.item[inner], s.queue[leaf, top] >> 5, tpr)
         if inner.numel():
-            _node_step(s, inner, nodes, npr, lanes16, near_first)
+            qn = int(_node_step(s, inner, nodes, npr, lanes16, near_first,
+                                work))
+            if qn > QCAP:
+                raise RuntimeError(f"while-while twin: a queue held {qn} of "
+                                   f"{QCAP} runs")
+            qmax = max(qmax, qn)
         if leaf.numel():
             _leaf_step(s, leaf, tris, tpr, any_hit)
-        # Loop exits of the kernel: the node loop ends when the ray is done
-        # or its queue is nearly full; the leaf loop when the queue is
-        # empty, and then the ray is finished or walks on.
-        s.leafph = torch.where(s.leafph, s.qn > 0,
-                               (s.item == DONE) | (s.qn >= QCAP - 2))
         s = retire(s, (s.item == DONE) & (s.qn == 0), out)
+    if work is not None and "queue_max" in work:
+        work["queue_max"] = max(work["queue_max"], qmax)
     return tuple(out)
 
 
+def predicted_next(first0, enc0, enc1, popped):
+    """The node packet_pipe.cu loads before a step's slab tests: the near
+    child by the order code (first0) when both children are internal, the
+    internal child when the other is a leaf, else the stack top (`popped`,
+    DONE when the stack is empty)."""
+    i0, i1 = enc0 >= 0, enc1 >= 0
+    return torch.where(i0 & i1, torch.where(first0, enc0, enc1),
+                       torch.where(i0, enc0, torch.where(i1, enc1, popped)))
+
+
 def _node_step(s: RayState, i: torch.Tensor, nodes, npr: int, lanes16,
-               near_first):
+               near_first, work):
     """Rays i visit their node: hit leaf children join the queue (child 0
     first), the nearer hit internal child (by near_first) is descended and
     the farther pushed; with no internal child hit the ray pops or is
-    done."""
+    done. Returns the most runs a queue of rays i holds after the step."""
     s.steps[i] += 1
     rec = fetch_nodes(nodes, s.item[i], npr, lanes16)
     h0, b0, h1, b1, enc0, enc1, cnt0, cnt1 = visit_nodes(
@@ -134,7 +157,9 @@ def _node_step(s: RayState, i: torch.Tensor, nodes, npr: int, lanes16,
     qn = s.qn[i]
     for hit, leaf, enc, cnt in ((h0, l0, enc0, cnt0), (h1, l1, enc1, cnt1)):
         q = hit & leaf
-        s.queue[i[q], qn[q].long()] = run_entry(enc, cnt)[q]
+        # A run past QCAP lands in the last slot; the caller then raises.
+        slot = qn[q].clamp(max=QCAP - 1).long()
+        s.queue[i[q], slot] = run_entry(enc, cnt)[q]
         qn = qn + q.to(torch.int32)
     s.qn[i] = qn
     i0, i1 = h0 & ~l0, h1 & ~l1
@@ -145,15 +170,21 @@ def _node_step(s: RayState, i: torch.Tensor, nodes, npr: int, lanes16,
     s.stack[i[both], slot] = torch.where(first0, enc1, enc0)[both]
     sp = torch.where(both, (sp + 1).clamp(max=STACK_DEPTH), sp)
     pop = ~(i0 | i1)
-    can = pop & (sp > 0)
     top = (sp - 1).clamp(min=0).long()
-    popped = s.stack[i, top]
-    done = torch.full_like(enc0, DONE)
-    s.item[i] = torch.where(
+    # The stack top, DONE when empty: a popping step pushed nothing, so it
+    # is the pre-step top.
+    popped = torch.where(sp > 0, s.stack[i, top], DONE)
+    nxt = torch.where(
         both, torch.where(first0, enc0, enc1),
-        torch.where(i0, enc0, torch.where(i1, enc1,
-                                          torch.where(can, popped, done))))
-    s.sp[i] = torch.where(can, sp - 1, sp)
+        torch.where(i0, enc0, torch.where(i1, enc1, popped)))
+    if work is not None and "fetch_steps" in work:
+        go = nxt != DONE
+        pred = predicted_next(first0, enc0, enc1, popped)
+        work["fetch_steps"] += int(go.sum())
+        work["fetch_predicted"] += int((go & (nxt == pred)).sum())
+    s.item[i] = nxt
+    s.sp[i] = torch.where(pop & (sp > 0), sp - 1, sp)
+    return qn.max()
 
 
 def _leaf_step(s: RayState, i: torch.Tensor, tris, tpr: int,
