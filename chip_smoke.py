@@ -19,15 +19,19 @@ deferred-leaf and combined packet kernels.
 
 Phases, each printed as it completes:
   1. versions, card name and power limit (nvidia-smi)
-  2. build the CUDA kernels from ntrace_tpu_torch/csrc with nvcc, and the
+  2. build the CUDA kernels from ntrace_tpu_torch/csrc with nvcc, the
      while-while kernels again with every step of their redesign taken
-     out (PARENT_SCHEDULE, the parent's schedule); ptxas's registers,
-     stack frame and spills of both builds' packet_ww and packet_pipe
+     out (PARENT_SCHEDULE, the parent's schedule), and the packet kernel
+     and packet_ifif so too (PACKET_PARENT); ptxas's registers, stack
+     frame and spills of both builds' packet_ww and packet_pipe, and of
+     both builds' packet kernel and packet_ifif
   3. kernel against its torch twin on the card: a 5,000-triangle random
      soup, 65,536 random rays, tables packed as (tris_per_row,
-     nodes_per_row) = (12, 1) and (4, 8); closest-hit tri/t/u/v bit-equal
-     on every ray, misses included; any-hit tri >= 0 equal; closest hits
-     exact against brute_force_mt
+     nodes_per_row) = (12, 1) and (4, 8), and a 500-triangle soup whose
+     median tree has leaves of more than 32 rows at (4, 1) (more than a
+     leaf run holds), each table's max_leaf_rows logged; closest-hit and
+     any-hit tri/t/u/v bit-equal on every ray, misses included; closest
+     hits exact against brute_force_mt
   4. the main path: launch counter, image, 4,096 stride-sampled rays
      against trace_cpu_golden (0 tie-aware mismatches) and 256 rays against
      brute_force_mt (exact tri)
@@ -64,12 +68,16 @@ Phases, each printed as it completes:
      each; all four modes rendered with engine packet_ww and packet_ifif,
      every pass on phase 8's rays, closest hits equal to the packet
      kernel's on tri/t/u/v on every ray, any hits on tri >= 0, images
-     bit-equal to phase 8's; ww against the parent's schedule on the
-     primary, shadow, AO and diffuse batches (closest hits bit-equal, any
-     hits tri >= 0, the any-hit rays whose tri changed counted); each
-     kernel (packet too) bit-equal to its twin on a 65,536-ray stride
-     sample of every batch; the times of packet, ww and ifif on the
-     primary, shadow, AO and diffuse batches, beside one bound per batch:
+     bit-equal to phase 8's; ww, packet and ifif against their parent's
+     schedules on the primary, shadow, AO and diffuse batches (closest
+     hits bit-equal, any hits tri >= 0, the any-hit rays whose tri changed
+     counted); each kernel (packet too) bit-equal to its twin on a
+     65,536-ray stride sample of every batch, with each twin's work a ray
+     (the packet and ifif twins' culled items too) and the packet and
+     ifif twins' slot tests against ww's (at most 1.05x on any hits, the
+     packet twin's at most 1x on closest hits); the times of packet, ww
+     and ifif on the primary, shadow, AO and diffuse batches, beside one
+     bound per batch:
      the least work any of the three twins counts on it (full counts on
      the primary frame, the sample scaled up on the others), and each
      twin's node visits and slot tests a ray; the twins on the primary
@@ -77,7 +85,10 @@ Phases, each printed as it completes:
  10. BASELINE config #4: the hairball (2,900,402 tris) with
      builder="lbvh", built on the card through the row-scan kernel, and
      render(mode="ao") through the packet kernel; 128 AO rays against
-     brute_force_anyhit; the AO pass time
+     brute_force_anyhit; the kernel bit-equal to its twin on a stride
+     sample of the live AO rays, whose work gives the bound; the any-hit
+     rays whose tri changed against PACKET_PARENT; the AO pass time
+     beside the bound
  11. the pipelined while-while and 8-wide packet kernels
      (csrc/packet_pipe.cu, csrc/packet_wide.cu): the phase-3 soup check for
      each (wide at tris_per_row 4, exact False and True); render() of
@@ -342,33 +353,39 @@ def compare(kern, twin, label):
 
 
 def phase_soup(device):
-    """Phase 3: kernel against twin (and brute force) on a random soup."""
+    """Phase 3: kernel against twin (and brute force) on a random soup, at
+    layouts (12, 1) and (4, 8), and on a 500-triangle soup whose median
+    tree has leaves of more than 32 rows (more than a leaf run holds):
+    closest and any hits bit-equal to the twin, any-hit tri included."""
     soup = make_random_soup(n_tris=5000, seed=11)
     flat = build_accel(soup, BuildConfig(builder="binned_sah"))
+    small = make_random_soup(n_tris=500, seed=7)
+    fat = build_accel(small, BuildConfig(builder="median",
+                                         max_leaf_size=600))
     rays_np = random_rays(np.random.default_rng(2024), 65_536)
     rays = [torch.from_numpy(a).to(device) for a in rays_np]
     shadow = rays[:3] + [torch.full_like(rays[3], 14.0)]
     sub = np.arange(0, 65_536, 16)
-    bf = brute_force_mt(soup, *(a[sub] for a in rays_np))
-    for tpr, npr in ((12, 1), (4, 8)):
+    for scene, tree, tpr, npr in ((soup, flat, 12, 1), (soup, flat, 4, 8),
+                                  (small, fat, 4, 1)):
         tables = tables_from_packed(
-            pack_bvh(flat, soup.tri_verts(), tris_per_row=tpr,
+            pack_bvh(tree, scene.tri_verts(), tris_per_row=tpr,
                      nodes_per_row=npr), device)
-        label = f"soup tpr={tpr} npr={npr}"
+        label = (f"soup {scene.num_tris} tris tpr={tpr} npr={npr} "
+                 f"max_leaf_rows {tables.max_leaf_rows}")
         kern = trace_packet(tables, *rays)
         compare(kern, trace_packet_ref(tables, *rays), label)
+        bf = brute_force_mt(scene, *(a[sub] for a in rays_np))
         if not np.array_equal(kern[0].cpu().numpy()[sub], bf.tri):
             raise AssertionError(f"{label}: tri differs from brute_force_mt")
         ka = trace_packet(tables, *shadow, any_hit=True)
-        ta = trace_packet_ref(tables, *shadow, any_hit=True)
-        if not torch.equal(ka[0] >= 0, ta[0] >= 0):
-            raise AssertionError(f"{label}: any-hit tri>=0 differs")
+        compare(ka, trace_packet_ref(tables, *shadow, any_hit=True),
+                f"{label} any hit")
         log(f"[3] {label}: closest-hit tri/t/u/v bit-equal vs twin on "
             f"all 65536 rays, misses included (hit rate "
             f"{float((kern[0] >= 0).float().mean()):.3f}); tri exact vs "
-            f"brute_force_mt on {len(sub)}; any-hit tri>=0 equal "
-            f"(blocked {float((ka[0] >= 0).float().mean()):.3f}, tri "
-            f"{'identical' if torch.equal(ka[0], ta[0]) else 'differs'})")
+            f"brute_force_mt on {len(sub)}; any hit bit-equal vs twin, tri "
+            f"included (blocked {float((ka[0] >= 0).float().mean()):.3f})")
 
 
 def phase_soup_variants(device, names=VARIANTS, tag="[9]"):
@@ -1151,6 +1168,10 @@ WW_SOURCES = ("packet_ww.cu", "packet_pipe.cu")
 # and slot tests on the full primary frame, within this share (phase 11).
 WW_WORK_RTOL = 0.02
 WW_ENTRIES = ("ntrace_packet_ww", "ntrace_packet_pipe")
+WW_KERNELS = "ww|pipe"
+# The twins whose closest-hit pops cull (their work counts the culled
+# items where asked).
+CULLING = ("packet", "packet_ifif")
 # Text patches (old, new; each old text occurs once in its source) that
 # take a step of the while-while redesign out of csrc/packet_ww.cu and
 # csrc/packet_pipe.cu again, or put a step that was tried back in.
@@ -1234,15 +1255,16 @@ PARENT_SCHEDULE = {
 }
 
 
-def patched_sources(name: str, patches: dict, csrc, out):
-    """Write a build's while-while sources into out/<slug>/ (csrc's, each
-    patched by patches.get(source)) with csrc's trace_common.cuh; returns
-    that directory."""
+def patched_sources(name: str, patches: dict, csrc, out,
+                    sources=WW_SOURCES):
+    """Write a build's `sources` (WW_SOURCES by default) into out/<slug>/
+    (csrc's, each patched by patches.get(source)) with csrc's
+    trace_common.cuh; returns that directory."""
     d = out / "".join(c if c.isalnum() else "_" for c in name)
     d.mkdir(parents=True, exist_ok=True)
     (d / "trace_common.cuh").write_text(
         (csrc / "trace_common.cuh").read_text())
-    for src in WW_SOURCES:
+    for src in sources:
         text = (csrc / src).read_text()
         for old, new in patches.get(src, ()):
             if text.count(old) != 1:
@@ -1254,14 +1276,14 @@ def patched_sources(name: str, patches: dict, csrc, out):
     return d
 
 
-def build_while_while(dirs: dict):
-    """One nvcc a while-while source of every build in `dirs` (name ->
-    directory from patched_sources), all at once, with kernels/build.py's
-    flags; one link a build. Returns {name: library with ntrace_packet_ww
-    and ntrace_packet_pipe bound}, nvcc's seconds and {name: ptxas log}."""
+def build_patched(dirs: dict, sources, entries):
+    """One nvcc a source of every build in `dirs` (name -> directory from
+    patched_sources), all at once, with kernels/build.py's flags; one link a
+    build. Returns {name: library with `entries` bound}, nvcc's seconds and
+    {name: ptxas log}."""
     t0 = time.perf_counter()
     jobs = [(name, d / f"{src[:-3]}.o", d / src) for name, d in dirs.items()
-            for src in WW_SOURCES]
+            for src in sources]
     done = kbuild._run_all([[kbuild.nvcc(), *kbuild.NVCC_FLAGS, "-I",
                              str(dirs[name]), "-c", "-o", str(o), str(s)]
                             for name, o, s in jobs])
@@ -1270,29 +1292,37 @@ def build_while_while(dirs: dict):
         logs[name] += out
         if rc:
             raise RuntimeError(f"nvcc failed on {name}:\n{out}")
-    paths = {name: d / f"libww_{os.getpid()}.so" for name, d in dirs.items()}
+    paths = {name: d / f"libpatched_{os.getpid()}.so"
+             for name, d in dirs.items()}
     done = kbuild._run_all([[kbuild.nvcc(), *kbuild.ARCH, "-shared", "-o",
                              str(paths[name]),
-                             *(str(d / f"{src[:-3]}.o") for src in WW_SOURCES)]
+                             *(str(d / f"{src[:-3]}.o") for src in sources)]
                             for name, d in dirs.items()])
     if any(rc for rc, _ in done):
         raise RuntimeError("link failed:\n" + "".join(o for _, o in done))
     libs = {}
     for name, path in paths.items():
         lib = ctypes.CDLL(str(path))
-        for entry in WW_ENTRIES:
+        for entry in entries:
             fn = getattr(lib, entry)
             fn.restype, fn.argtypes = kbuild.SIGNATURES[entry]
         libs[name] = lib
     return libs, time.perf_counter() - t0, logs
 
 
-def ww_ptxas(log: str) -> str:
-    """ptxas's registers, stack frame and spill bytes of each
-    packet_ww_kernel and packet_pipe_kernel instantiation in a build log."""
+def build_while_while(dirs: dict):
+    """build_patched of the while-while sources (WW_SOURCES, WW_ENTRIES)."""
+    return build_patched(dirs, WW_SOURCES, WW_ENTRIES)
+
+
+def ptxas_report(log: str, kernels: str) -> str:
+    """ptxas's registers, stack frame and spill bytes of each instantiation
+    of the kernels packet_<k>_kernel, k in the `kernels` alternatives, in a
+    build log."""
     out = []
     for m in re.finditer(
-            r"Compiling entry function '\w*?(packet_(?:ww|pipe))_kernel"
+            r"Compiling entry function '\w*?(packet_(?:" + kernels
+            + r"))_kernel"
             r"ILb(\d)E\w*'.*?(\d+) bytes stack frame, (\d+) bytes spill "
             r"stores, (\d+) bytes spill loads.*?Used (\d+) registers", log,
             re.DOTALL):
@@ -1300,6 +1330,11 @@ def ww_ptxas(log: str) -> str:
                    f"registers, {m.group(3)} B stack frame, spills "
                    f"{m.group(4)}/{m.group(5)} B")
     return "; ".join(out) or "not in this build's log (library reused)"
+
+
+def ww_ptxas(log: str) -> str:
+    """ptxas_report of packet_ww_kernel and packet_pipe_kernel."""
+    return ptxas_report(log, WW_KERNELS)
 
 
 def parent_schedule_library():
@@ -1312,11 +1347,49 @@ def parent_schedule_library():
     return libs["parent"], secs, logs["parent"]
 
 
-def any_hit_against_parent(tag, tables, secondary, parent, engine):
-    """Phases 9 and 11: `engine` (packet_ww or packet_pipe) against the
-    parent's schedule (PARENT_SCHEDULE) on the full primary, shadow, AO and
-    diffuse batches: closest hits bit-equal, any hits tri >= 0 equal; logs
-    on how many any-hit rays the triangle changed."""
+# -- the packet kernel's and packet_ifif's parent schedule (phases 2, 9, 10)
+
+PACKET_SOURCES = ("packet_trace.cu", "packet_ifif.cu")
+PACKET_ENTRIES = ("ntrace_packet_trace", "ntrace_packet_ifif")
+PACKET_KERNELS = "trace|ifif"
+# Text patches (old, new; each old text occurs once in its source) that
+# take a step of the redesign out of csrc/packet_trace.cu and
+# csrc/packet_ifif.cu again. scripts/packet_ab.py times each; phase 2
+# builds the parent's schedule (PACKET_PARENT: every step out), whose
+# any-hit triangles phases 9 and 10 count the change against.
+# Step 1 out: an any-hit ray tests its whole leaf (run) before it stops.
+ROW_STOP_OUT = (("if (kAnyHit && hit.id >= 0) break;", ""),)
+# Step 2 out: no entry distances, no cull on pop.
+CULL_OUT = (("constexpr bool kCullOnPop = !kAnyHit;",
+             "constexpr bool kCullOnPop = false;"),)
+# Step 4 out: triangle slots as ten scalar loads (test_row).
+VECTOR_OUT = (("test_row_vec(tris, row0 + k, tpr, ray, hit);",
+               "test_row(tris, row0 + k, tpr, ray, hit);"),)
+PACKET_PARENT = {
+    "packet_trace.cu": ROW_STOP_OUT + CULL_OUT + VECTOR_OUT,
+    "packet_ifif.cu": ROW_STOP_OUT + CULL_OUT + VECTOR_OUT,
+}
+
+
+def packet_parent_library():
+    """Phase 2: the packet kernel and packet_ifif built with every step of
+    their redesign taken out (PACKET_PARENT), into the ignored build
+    directory. Returns the library, nvcc's seconds and its ptxas log."""
+    d = patched_sources("packet parent", PACKET_PARENT, kbuild.CSRC_DIR,
+                        kbuild.BUILD_DIR / "packet_parent", PACKET_SOURCES)
+    libs, secs, logs = build_patched({"parent": d}, PACKET_SOURCES,
+                                     PACKET_ENTRIES)
+    return libs["parent"], secs, logs["parent"]
+
+
+def any_hit_against_parent(tag, tables, secondary, parent, engine,
+                           what="pause at 30 runs, every step out"):
+    """Phases 9 and 11: `engine` (packet_ww or packet_pipe against
+    PARENT_SCHEDULE; packet or packet_ifif against PACKET_PARENT, `what`
+    names it) against the parent's schedule built in `parent` on the full
+    primary, shadow, AO and diffuse batches: closest hits bit-equal, any
+    hits tri >= 0 equal; logs on how many any-hit rays the triangle
+    changed."""
     kernel = ALL_ENGINES[engine][0]
     batches = {"primary": secondary["shadow"][1]["primary"][:2]}
     batches.update({m: secondary[m][1][m][:2]
@@ -1334,8 +1407,8 @@ def any_hit_against_parent(tag, tables, secondary, parent, engine):
             raise AssertionError(f"{label}: tri>=0 differs")
         changed.append(f"{bname} {int((new[0] != old[0]).sum())} of "
                        f"{rays[0].shape[0]}")
-    log(f"{tag} {engine} against the parent's schedule (pause at 30 runs, "
-        "every step out): closest hits bit-equal on the primary and "
+    log(f"{tag} {engine} against the parent's schedule ({what}): "
+        "closest hits bit-equal on the primary and "
         "diffuse batches, any hits tri>=0 equal; any-hit tri changed on "
         + ", ".join(changed) + " rays")
 
@@ -1411,6 +1484,8 @@ def phase_variant_twins(tables, secondary, engines=ENGINES, tag="[9]"):
             work = work_with_reads(tables)
             if engine == "packet_pipe":
                 work.update(fetch_steps=0, fetch_predicted=0)
+            if engine in CULLING and not any_hit:
+                work.update(culled_node_visits=0, culled_slot_tests=0)
             t0 = time.perf_counter()
             tw = twin(tables, *sample, any_hit=any_hit, work=work)
             twin_s = time.perf_counter() - t0
@@ -1423,8 +1498,36 @@ def phase_variant_twins(tables, secondary, engines=ENGINES, tag="[9]"):
                 f"twin {twin_s:.2f} s); per ray "
                 f"{work['node_visits'] / len(sample[0]):.2f} node visits, "
                 f"{work['tri_slot_tests'] / len(sample[0]):.2f} slot tests"
-                + early_fetch(work))
+                + early_fetch(work) + culled(work, len(sample[0])))
+        if engines is ENGINES:
+            against_ww(tag, bname, any_hit, works[bname][1])
     return works
+
+
+def culled(work: dict, rays: int) -> str:
+    """The packet or ifif twin's culled items a ray, where counted."""
+    if "culled_node_visits" not in work:
+        return ""
+    return (f"; culled on pop {work['culled_node_visits'] / rays:.2f} node "
+            f"visits, {work['culled_slot_tests'] / rays:.2f} slot tests a "
+            "ray")
+
+
+def against_ww(tag, bname, any_hit, works):
+    """Phase 9: the packet and ifif twins' slot tests on a batch's sample
+    against ww's, the redesign's bounds: on any-hit rays at most 1.05x, on
+    closest-hit rays (the packet twin) at most 1x. Raises if one is
+    missed."""
+    ww = works["packet_ww"]["tri_slot_tests"]
+    aims = ({"packet": 1.05, "packet_ifif": 1.05} if any_hit
+            else {"packet": 1.0})
+    held = {e: works[e]["tri_slot_tests"] <= a * ww for e, a in aims.items()}
+    log(f"{tag} {bname} slot tests against packet_ww's: " + "; ".join(
+        f"{e} {works[e]['tri_slot_tests'] / ww:.4f}x (aim <= {a}: "
+        f"{'held' if held[e] else 'MISSED'})" for e, a in aims.items()))
+    if not all(held.values()):
+        raise AssertionError(f"{tag} {bname}: slot tests past packet_ww's "
+                             "bound")
 
 
 def early_fetch(work: dict) -> str:
@@ -1455,10 +1558,13 @@ def phase_variant_timing(tables, primary, secondary, works, smi):
     full = {}
     for engine, (_, twin, *_) in ENGINES.items():
         full[engine] = work_with_reads(tables)
+        if engine in CULLING:
+            full[engine].update(culled_node_visits=0, culled_slot_tests=0)
         twin(tables, *primary, work=full[engine])
         log(f"[9] {engine} primary frame, full count: "
             f"{full[engine]['node_visits']} node visits, "
-            f"{full[engine]['tri_slot_tests']} slot tests")
+            f"{full[engine]['tri_slot_tests']} slot tests"
+            + culled(full[engine], primary[0].shape[0]))
     batches = {"primary": (primary, False, (1.0, full)),
                "shadow": secondary["shadow"][1]["shadow"][:2]
                + (works["shadow"],),
@@ -1498,13 +1604,18 @@ def phase_variant_timing(tables, primary, secondary, works, smi):
     return bounds["primary"][:2], rows, full
 
 
-def phase_hairball_ao(device, hair, smi, width=WIDTH, height=HEIGHT):
+def phase_hairball_ao(device, hair, smi, parent, width=WIDTH,
+                      height=HEIGHT):
     """Phase 10, BASELINE config #4: the hairball at 2,900,402 tris,
     builder="lbvh" (max_leaf_size 32) with engine "auto", so the renderer
     builds the tables on the card through the row-scan kernel, and
     render(mode="ao") traces through the packet kernel. The counts are set
     to 0 before the renderer is made and read after the frame. HAIR_AO_RAYS
-    stride-sampled AO rays against brute_force_anyhit; the AO pass time."""
+    stride-sampled AO rays against brute_force_anyhit; the kernel bit-equal
+    to its twin on a SAMPLE_RAYS stride sample of the live AO rays, whose
+    work, scaled, gives the bound; the any-hit rays whose tri changed
+    against the parent's schedule (`parent`, PACKET_PARENT); the AO pass
+    time beside the bound."""
     camera = default_camera("hairball")
     reset_counts()
     rh = Renderer(hair, LBVH_CFG, RenderConfig(width=width, height=height,
@@ -1527,16 +1638,41 @@ def phase_hairball_ao(device, hair, smi, width=WIDTH, height=HEIGHT):
         raise AssertionError("[10] hairball AO: tri>=0 differs from "
                              "brute_force_anyhit")
     st = res.stats
+    sample, scale = stride_sample(rays)
+    work = work_with_reads(rh.tables)
+    t0 = time.perf_counter()
+    tw = trace_packet_ref(rh.tables, *sample, any_hit=True, work=work)
+    twin_s = time.perf_counter() - t0
+    compare(trace_packet(rh.tables, *sample, any_hit=True), tw,
+            "[10] hairball AO sample vs twin")
+    b, by, _ = batch_bound(rays, {"packet": (rh.tables, work, scale)})
+    new = trace_packet(rh.tables, *rays, any_hit=True)
+    with kernel_library(parent):
+        old = trace_packet(rh.tables, *rays, any_hit=True)
+    if not torch.equal(new[0] >= 0, old[0] >= 0):
+        raise AssertionError("[10] hairball AO: tri>=0 differs from the "
+                             "parent's schedule")
     t = cuda_ms(lambda: trace_packet(rh.tables, *rays, any_hit=True),
                 warmup=2, iters=10)
     ms = statistics.median(t)
+    n = len(sample[0])
     log(f"[10] hairball AO ({hair.num_tris} tris, {rh.tables.num_nodes} "
-        f"nodes, build {rh.timer.ms()['build']:.1f} ms): launches "
+        f"nodes, layout tpr={rh.tables.tris_per_row} "
+        f"npr={rh.tables.nodes_per_row}, max_leaf_rows "
+        f"{rh.tables.max_leaf_rows}, build {rh.timer.ms()['build']:.1f} "
+        "ms): launches "
         + json.dumps({k: v for k, v in counts.items() if v})
         + f"; AO pass {st['rays_ao']:.0f} rays ({R} live, traced), "
         f"trace_ao {st['trace_ao']:.3f} ms = {st['mrays_ao']:.2f} Mrays/s; "
-        f"the kernel alone on the live rays median {ms:.4f} ms of 10 = "
-        f"{R / ms / 1e3:.2f} Mrays/s; tri>=0 equal to brute_force_anyhit on "
+        f"the kernel alone on the live rays median {ms:.4f} ms of 10 (min "
+        f"{min(t):.4f}, max {max(t):.4f}) = {R / ms / 1e3:.2f} Mrays/s, "
+        f"bound {b:.4f} ms by {by} ({ms / b:.1f}x; the twin's work on a "
+        f"{n}-ray stride sample, bit-equal to the kernel, tri included, "
+        f"twin {twin_s:.1f} s: {work['node_visits'] / n:.2f} node visits, "
+        f"{work['tri_slot_tests'] / n:.2f} slot tests a ray); any-hit tri "
+        f"changed against the parent's schedule (every step out) on "
+        f"{int((new[0] != old[0]).sum())} of {R} rays, tri>=0 equal; "
+        f"tri>=0 equal to brute_force_anyhit on "
         f"{len(sub)} (blocked {blocked.mean():.4f}); image mean "
         f"{res.image.mean():.4f}; stages "
         + json.dumps({k: round(v, 3) for k, v in st.items()}) + f" on {smi}")
@@ -1876,16 +2012,25 @@ def phase_new_timing(tables, wt, primary, secondary, entries, full, smi,
         f"{e} {w['node_visits']} node visits, {w['tri_slot_tests']} slot "
         f"tests" for e, (_, w, _) in full.items())
         + "; packet_pipe" + early_fetch(full["packet_pipe"][1]))
+    # The packet twin's walk without its cull on pop: its work plus the
+    # culled items' (a culled node one visit, a culled leaf its slots).
     packet = full["packet"][1]
+    uncut = {"node_visits": packet["node_visits"]
+             + packet["culled_node_visits"],
+             "tri_slot_tests": packet["tri_slot_tests"]
+             + packet["culled_slot_tests"]}
     for engine in ("packet_ww", "packet_pipe"):
         w = full[engine][1]
-        ratio = [w[k] / packet[k] for k in ("node_visits", "tri_slot_tests")]
+        ratio = [w[k] / uncut[k] for k in uncut]
         if max(abs(x - 1) for x in ratio) > WW_WORK_RTOL:
             raise AssertionError(f"[11] {engine} primary frame: node visits "
                                  f"and slot tests {ratio} x the packet "
-                                 "twin's, beyond 2%")
+                                 "twin's walk without the cull, beyond 2%")
         log(f"[11] {engine} primary frame: node visits {ratio[0]:.4f}x, "
-            f"slot tests {ratio[1]:.4f}x the packet twin's (within 2%)")
+            f"slot tests {ratio[1]:.4f}x the packet twin's walk without "
+            f"its cull on pop (within 2%); "
+            f"{w['tri_slot_tests'] / packet['tri_slot_tests']:.4f}x its "
+            "slot tests with the cull")
     batches = {"primary": (primary, False, full),
                "shadow": secondary["shadow"][1]["shadow"][:2]
                + (entries["shadow"],),
@@ -2834,6 +2979,11 @@ def main():
     ww_parent, secs, plog = parent_schedule_library()
     log(f"[2] while-while ptxas: {ww_ptxas(b.log)}; the parent's schedule "
         f"(every step out, built in {secs:.1f} s): {ww_ptxas(plog)}")
+    packet_parent, secs, plog = packet_parent_library()
+    log(f"[2] packet and packet_ifif ptxas: "
+        f"{ptxas_report(b.log, PACKET_KERNELS)}; the parent's schedule (every "
+        f"step out, built in {secs:.1f} s): "
+        f"{ptxas_report(plog, PACKET_KERNELS)}")
 
     device = torch.device("cuda")
     phase_soup(device)
@@ -2861,11 +3011,15 @@ def main():
     variant_launches = phase_variant_renders(r, secondary)
     any_hit_against_parent("[9]", r.tables, secondary, ww_parent,
                            "packet_ww")
+    for engine in ("packet", "packet_ifif"):
+        any_hit_against_parent("[9]", r.tables, secondary, packet_parent,
+                               engine, "every step out")
     works = phase_variant_twins(r.tables, secondary)
     _, variant_rows, full_counts = phase_variant_timing(
         r.tables, (batch.orig, batch.dirn, batch.tmin, batch.tmax),
         secondary, works, smi)
-    phase_hairball_ao(device, hair, smi)
+    phase_hairball_ao(device, hair, smi, packet_parent)
+    del packet_parent
     mark("8-10")
 
     phase_soup_variants(device, ("packet_pipe",), "[11]")

@@ -20,7 +20,7 @@
 //     slot is empty and pops on: it keeps walking speculatively. The warp
 //     stays in the node phase while __any_sync finds a lane still
 //     searching for its first leaf (a node item and an empty slot);
-//   - leaf phase: each lane holding a postponed run tests all its rows
+//   - leaf phase: each lane holding a postponed run tests its rows
 //     (Moller-Trumbore only); if its current item is a leaf run too, that
 //     run takes the slot and the lane pops on, as Aila and Laine's
 //     "another leaf was postponed" loop. The warp stays in the leaf phase
@@ -30,6 +30,20 @@
 //     so each vote is over the full mask and the order of leaves is a
 //     function of the 32 rays alone: trace/packet_ifif.py's twin models the
 //     warps and is bit-equal on any-hit triangles too.
+// The Hopper design, against the first port of PR 4:
+//   - any hit: a run stops at its first row that accepts a hit, and the
+//     lane is done (it tested the whole run before); the votes are as
+//     they were;
+//   - closest hit: each stack entry, and the item in hand, keeps the slab
+//     entry distance of its box, and an item whose box the slab test
+//     would now fail is dropped (trace_common.cuh:culled): on every pop,
+//     and after a leaf phase for the item the lane held through it, a
+//     node or the next leaf, found under an older hit distance. Any-hit
+//     entries carry no distance (their hit distance does not shrink before
+//     they stop), so their stack stays 512 bytes; closest-hit entries are
+//     8 bytes, 1 KB;
+//   - triangle rows load as float4 pairs of slots (trace_common.cuh:
+//     test_row_vec).
 // Choices shared with packet_ww.cu: near-first by slab entry distance, the
 // clamped 128-entry stack, MAX_STEPS over node and leaf steps, the 32-row
 // limit of a leaf run (refused by the wrapper). Closest hits are bit-equal
@@ -38,7 +52,7 @@
 // What bounds it on an H100: as packet_trace.cu, dependent L2 fetches and
 // divergence; the speculation trades extra node visits (a lane walks past
 // its first leaf) for warps that run one kind of work at a time. The stack
-// (512 bytes) lives in local memory.
+// lives in local memory.
 
 #include "trace_common.cuh"
 
@@ -49,13 +63,15 @@ using namespace ntrace;
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kNoLeaf = 0;   // the leaf slot is empty (a leaf item is < 0)
 
-__device__ __forceinline__ int leaf_item(int enc, int cnt) {
-    return enc < 0 ? -run_entry(enc, cnt) - 1 : enc;
-}
+// Closest hits drop items whose box the ray has left (see the head).
+template <bool kAnyHit>
+constexpr bool kCullOnPop = !kAnyHit;
 
-__device__ __forceinline__ int pop(const int* stack, int& sp) {
-    return sp > 0 ? stack[--sp] : kDone;
-}
+// A work item, with the entry distance of its box where items are culled.
+template <bool kCull>
+struct alignas(8) Entry { int item; float b; };
+template <>
+struct Entry<false> { int item; };
 
 template <bool kAnyHit>
 __global__ void __launch_bounds__(kBlock) packet_ifif_kernel(
@@ -65,84 +81,118 @@ __global__ void __launch_bounds__(kBlock) packet_ifif_kernel(
     int n_rays, int npr, int tpr, int* __restrict__ out_tri,
     float* __restrict__ out_t, float* __restrict__ out_u,
     float* __restrict__ out_v) {
+    constexpr bool kCull = kCullOnPop<kAnyHit>;
+    using E = Entry<kCull>;
     const int r = blockIdx.x * blockDim.x + threadIdx.x;
     const bool in_range = r < n_rays;   // no early return: lanes must vote
 
     Ray ray{};
     Hit hit{0.0f, -1, 0.0f, 0.0f};
-    int item = kDone, leaf = kNoLeaf;
+    E cur{};
+    cur.item = kDone;
+    int leaf = kNoLeaf;
     if (in_range) {
         ray = load_ray(orig, dirn, tmin, r);
         hit.t = tmax[r];
         // A dead ray (tmax <= tmin, or NaN) can accept no hit.
-        item = hit.t > ray.tn ? 0 : kDone;
+        cur.item = hit.t > ray.tn ? 0 : kDone;
     }
-    int stack[kStackDepth];
+    E stack[kStackDepth];
     int sp = 0;
     long long steps = 0;
     bool node_phase = true;
 
-    while (__any_sync(kFullMask, item != kDone || leaf < 0)) {
+    // The stack top, past every entry whose box the ray has left.
+    auto pop = [&]() {
+        while (sp > 0) {
+            const E e = stack[--sp];
+            if constexpr (kCull) {
+                if (culled(e.b, hit.t)) continue;
+            }
+            return e;
+        }
+        E done{};
+        done.item = kDone;
+        return done;
+    };
+    // Child `c` of a node record as a work item (its box entered at `b`).
+    auto child = [&](const float* rec, int c, float b) {
+        E e{};
+        const int enc = static_cast<int>(rec[12 + c]);
+        e.item = enc < 0 ? -run_entry(enc, static_cast<int>(rec[14 + c])) - 1
+                         : enc;
+        if constexpr (kCull) e.b = b;
+        return e;
+    };
+
+    while (__any_sync(kFullMask, cur.item != kDone || leaf < 0)) {
         if (node_phase) {
-            if (item >= 0) {
+            if (cur.item >= 0) {
                 if (steps == kMaxSteps) {
-                    item = kDone;
+                    cur.item = kDone;
                     leaf = kNoLeaf;
                 } else {
                     ++steps;
                     float rec[kNodeLanes];
-                    load_node(nodes, item, npr, rec);
+                    load_node(nodes, cur.item, npr, rec);
                     float b0, b1;
                     const bool h0 = slab(rec, ray, hit.t, &b0);
                     const bool h1 = slab(rec + 6, ray, hit.t, &b1);
-                    const int it0 = leaf_item(static_cast<int>(rec[12]),
-                                              static_cast<int>(rec[14]));
-                    const int it1 = leaf_item(static_cast<int>(rec[13]),
-                                              static_cast<int>(rec[15]));
                     if (h0 && h1) {
                         // Near child first; a tie goes to child 0.
                         const bool first0 = b0 <= b1;
-                        stack[min(sp, kStackDepth - 1)] = first0 ? it1 : it0;
+                        stack[min(sp, kStackDepth - 1)] =
+                            first0 ? child(rec, 1, b1) : child(rec, 0, b0);
                         sp = min(sp + 1, kStackDepth);
-                        item = first0 ? it0 : it1;
+                        cur = first0 ? child(rec, 0, b0) : child(rec, 1, b1);
                     } else if (h0) {
-                        item = it0;
+                        cur = child(rec, 0, b0);
                     } else if (h1) {
-                        item = it1;
+                        cur = child(rec, 1, b1);
                     } else {
-                        item = pop(stack, sp);
+                        cur = pop();
                     }
                     // First leaf: postpone it and walk on.
-                    if (item < 0 && item != kDone && leaf >= 0) {
-                        leaf = item;
-                        item = pop(stack, sp);
+                    if (cur.item < 0 && cur.item != kDone && leaf >= 0) {
+                        leaf = cur.item;
+                        cur = pop();
                     }
                 }
             }
-            if (!__any_sync(kFullMask, item >= 0 && leaf >= 0)) {
+            if (!__any_sync(kFullMask, cur.item >= 0 && leaf >= 0)) {
                 node_phase = false;
             }
         } else {
             if (leaf < 0) {
                 if (steps == kMaxSteps) {
-                    item = kDone;
+                    cur.item = kDone;
                     leaf = kNoLeaf;
                 } else {
                     ++steps;
                     const int v = -leaf - 1;
                     const int row0 = v >> 5, rows = (v & 31) + 1;
                     for (int k = 0; k < rows; ++k) {
-                        test_row(tris, row0 + k, tpr, ray, hit);
+                        test_row_vec(tris, row0 + k, tpr, ray, hit);
+                        if (kAnyHit && hit.id >= 0) break;
                     }
                     if (kAnyHit && hit.id >= 0) {
-                        item = kDone;
+                        cur.item = kDone;
                         leaf = kNoLeaf;
-                    } else if (item < 0 && item != kDone) {
-                        // Another leaf was postponed: it is next.
-                        leaf = item;
-                        item = pop(stack, sp);
                     } else {
-                        leaf = kNoLeaf;
+                        // The item held through the leaf phase was found
+                        // under an older hit distance.
+                        if constexpr (kCull) {
+                            if (cur.item != kDone && culled(cur.b, hit.t)) {
+                                cur = pop();
+                            }
+                        }
+                        if (cur.item < 0 && cur.item != kDone) {
+                            // Another leaf was postponed: it is next.
+                            leaf = cur.item;
+                            cur = pop();
+                        } else {
+                            leaf = kNoLeaf;
+                        }
                     }
                 }
             }

@@ -180,6 +180,44 @@ __device__ __forceinline__ void test_row(const float* __restrict__ tris,
     }
 }
 
+// test_row with vector loads (packet_trace.cu, packet_ifif.cu): a row is
+// 512 B and a slot 40 B, so slots 2k and 2k + 1 are 80 B from a 16-byte
+// boundary, five float4 through the read-only path; an odd last slot is
+// five float2. The slots are tested in test_row's order, so the hit is
+// test_row's bit for bit.
+__device__ __forceinline__ void test_row_vec(const float* __restrict__ tris,
+                                             int row, int tpr, const Ray& r,
+                                             Hit& hit) {
+    const float* base = tris + static_cast<size_t>(row) * kRowLanes;
+    int j = 0;
+    for (; j + 1 < tpr; j += 2) {
+        const float4* s = reinterpret_cast<const float4*>(base
+                                                          + kTriLanes * j);
+        const float4 a = __ldg(s), b = __ldg(s + 1), c = __ldg(s + 2);
+        const float4 d = __ldg(s + 3), e = __ldg(s + 4);
+        test_slot(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x,
+                  static_cast<int>(c.y), r, hit);
+        test_slot(c.z, c.w, d.x, d.y, d.z, d.w, e.x, e.y, e.z,
+                  static_cast<int>(e.w), r, hit);
+    }
+    if (j < tpr) {
+        const float2* s = reinterpret_cast<const float2*>(base
+                                                          + kTriLanes * j);
+        const float2 a = __ldg(s), b = __ldg(s + 1), c = __ldg(s + 2);
+        const float2 d = __ldg(s + 3), e = __ldg(s + 4);
+        test_slot(a.x, a.y, b.x, b.y, c.x, c.y, d.x, d.y, e.x,
+                  static_cast<int>(e.y), r, hit);
+    }
+}
+
+// A stack entry whose box the slab test entered at `begin` is culled on pop
+// when begin * kSlabLo > hit_t * kSlabHi: slab() compares the same products
+// with its exit clamped to hit_t, so the box would fail it now
+// (packet_trace.cu, packet_ifif.cu).
+__device__ __forceinline__ bool culled(float begin, float hit_t) {
+    return begin * kSlabLo > hit_t * kSlabHi;
+}
+
 // The same over a row staged in shared memory (`row` 8-byte aligned; a slot
 // is 10 floats, so five 8-byte broadcast loads).
 __device__ __forceinline__ void test_row_shared(const float* row, int tpr,

@@ -9,7 +9,8 @@ are the steps every twin shares: decode node records, slab-test both
 children, and fold one triangle row into the running hit (`fold_hits`
 folds many candidates at once, order-free, for the packet twins); `RayState`,
 `start_twin` and `retire` are the lockstep state the twins share, and
-`tally` their count of work. `check_rays`, `hit_outputs` and
+`tally` their count of work; `culled` and `skip_culled` the cull on pop
+of the packet and ifif twins. `check_rays`, `hit_outputs` and
 `launch_traversal` are the wrappers' side: one signature for the kernels
 of packet_trace.cu, packet_ww.cu and packet_ifif.cu. `run_entry` and
 `check_leaf_runs` are the leaf-run encoding of the while-while and
@@ -120,6 +121,30 @@ def slab_child(rec: torch.Tensor, base: int, ox, oy, oz, ix, iy, iz,
         torch.fmin(torch.fmax(tlo_x, thi_x), torch.fmax(tlo_y, thi_y)),
         torch.fmin(torch.fmax(tlo_z, thi_z), tmax))
     return begin * SLAB_LO <= end * SLAB_HI, begin
+
+
+def culled(begin: torch.Tensor, ht: torch.Tensor) -> torch.Tensor:
+    """Where an item whose box the slab test entered at `begin` is dropped
+    by a ray at hit distance `ht`: begin * SLAB_LO > ht * SLAB_HI, the
+    products slab_child compares with its exit clamped to ht, so the box
+    would fail it now (csrc/trace_common.cuh:culled)."""
+    return begin * SLAB_LO > ht * SLAB_HI
+
+
+def skip_culled(s, i: torch.Tensor, dropped) -> torch.Tensor:
+    """The stack pointers of rays i moved past every top entry that
+    `culled` drops (entry distances in s.stack_b, hit distances in s.ht),
+    as a closest-hit pop of the packet and ifif kernels does;
+    `dropped(rays, slots)` is called with each layer of skipped entries.
+    Returns the new pointers (s.sp is not written)."""
+    sp, ht = s.sp[i], s.ht[i]
+    while True:
+        top = (sp - 1).clamp(min=0).long()
+        drop = (sp > 0) & culled(s.stack_b[i, top], ht)
+        if not bool(drop.any()):
+            return sp
+        dropped(i[drop], top[drop])
+        sp = sp - drop.to(sp.dtype)
 
 
 def mt_row_best(trow: torch.Tensor, ox, oy, oz, dx, dy, dz, tn, tpr: int):
