@@ -234,7 +234,7 @@ from ntrace_tpu_torch.trace.packet_wide import (WARP, trace_packet_wide,
                                                 trace_packet_wide_ref)
 from ntrace_tpu_torch.trace.packet_ww import (trace_packet_ww,
                                               trace_packet_ww_ref)
-from ntrace_tpu_torch.utils.timing import cuda_ms
+from ntrace_tpu_torch.utils.timing import cuda_ms, tracing
 
 KERNEL_SOURCE = "ntrace_tpu_torch/csrc/packet_trace.cu"
 KERNEL_REPLACES = "ntrace_tpu/trace/packet_pallas.py:99"
@@ -452,7 +452,8 @@ def phase_main_path(device, n_tris=SCENE_TRIS, width=WIDTH, height=HEIGHT):
 
     camera = default_camera("conference")
     trace_packet.launches = 0
-    res = r.render(camera)
+    with tracing():
+        res = r.render(camera)
     launches = trace_packet.launches
     if launches < 1:
         raise AssertionError("the main path did not launch the kernel")
@@ -569,7 +570,8 @@ def profile_render(r, smi, tag="[5]"):
     """One warm render() under torch.profiler: device time by kernel and
     the device's busy share of the frame's wall time."""
     camera = default_camera("conference")
-    warm = r.render(camera)
+    with tracing():
+        warm = r.render(camera)
     log(f"{tag} warm render() stages without profiler (ms) on {smi}: "
         + json.dumps({k: round(v, 3) for k, v in warm.stats.items()}))
     profile_once(f"{tag} profile of one warm render()",
@@ -586,10 +588,12 @@ def profile_once(label, fn, smi, top=8):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # Device-side events only (kernels, memcpys): a CPU op such as
-    # aten::copy_ also carries its kernels' device time.
+    # aten::copy_ also carries its kernels' device time, and a profiler
+    # range (the program's ntrace.* spans) its copy on the device timeline.
     dev = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                   for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation
                   and e.self_device_time_total > 0), key=lambda x: -x[1])
     busy = sum(ms for _, ms, _ in dev)
     log(f"{label}: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
@@ -618,7 +622,8 @@ def screen_render(rv, key, tag):
         fn.launches = 0
     trace_packet.launches = 0
     bd.binraster_prep_dense5.calls = 0
-    res = rv.render(default_camera("conference"))
+    with tracing():
+        res = rv.render(default_camera("conference"))
     counts = {k: fn.launches for k, fn in SCREEN_KERNELS.items()}
     counts.update(packet=trace_packet.launches,
                   prep_v5=bd.binraster_prep_dense5.calls)
@@ -899,7 +904,8 @@ def phase_lbvh_frame(r, batch):
                                                   mode="primary",
                                                   engine="auto"),
                   device=r.device)
-    res = rl.render(camera)
+    with tracing():
+        res = rl.render(camera)
     counts = {"row_scan": row_scan_i32.launches,
               "packet": trace_packet.launches}
     if rl.flat is not None or rl.tables.device.type != r.device.type:
@@ -1101,7 +1107,7 @@ def render_recorded(r, mode, camera):
     """render(mode) with the launch counts set to 0 just before and read
     just after; returns the result, the counts and the passes by name."""
     reset_counts()
-    with recorded(r) as passes:
+    with recorded(r) as passes, tracing():
         res = r.render(camera, mode)
     counts = launch_counts()
     names = PASSES[mode]
@@ -1621,7 +1627,7 @@ def phase_hairball_ao(device, hair, smi, parent, width=WIDTH,
     rh = Renderer(hair, LBVH_CFG, RenderConfig(width=width, height=height,
                                                mode="ao", engine="auto"),
                   device=device)
-    with recorded(rh) as passes:
+    with recorded(rh) as passes, tracing():
         res = rh.render(camera)
     counts = launch_counts()
     if rh.flat is not None or counts["row_scan"] < 2 \
@@ -1663,7 +1669,8 @@ def phase_hairball_ao(device, hair, smi, parent, width=WIDTH,
         "ms): launches "
         + json.dumps({k: v for k, v in counts.items() if v})
         + f"; AO pass {st['rays_ao']:.0f} rays ({R} live, traced), "
-        f"trace_ao {st['trace_ao']:.3f} ms = {st['mrays_ao']:.2f} Mrays/s; "
+        f"trace_ao {st['trace_ao']:.3f} ms = "
+        f"{st['rays_ao'] / st['trace_ao'] / 1e3:.2f} Mrays/s; "
         f"the kernel alone on the live rays median {ms:.4f} ms of 10 (min "
         f"{min(t):.4f}, max {max(t):.4f}) = {R / ms / 1e3:.2f} Mrays/s, "
         f"bound {b:.4f} ms by {by} ({ms / b:.1f}x; the twin's work on a "
@@ -2816,7 +2823,7 @@ def phase_fairy(device, n_tris=FAIRY_TRIS, width=WIDTH, height=HEIGHT):
                   device=device)
     passes = {}
     for mode in ("diffuse", "ao"):
-        with recorded(rh) as got:
+        with recorded(rh) as got, tracing():
             res = rh.render(camera, mode)
         passes[mode] = (res, got)
     counts = launch_counts()

@@ -25,6 +25,8 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 
+from ntrace_tpu_torch.utils import timing
+
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
@@ -189,3 +191,13 @@ def library() -> ctypes.CDLL:
             fn.argtypes = argtypes
         _lib = lib
     return _lib
+
+
+def launch(entry: str, *args):
+    """Call the library's C entry point `entry` with `args`, inside the
+    profiler range ntrace.launch.<entry> while tracing is on
+    (utils/timing.py); raises on the CUDA error code it returns."""
+    with timing.span(f"ntrace.launch.{entry}"):
+        rc = getattr(library(), entry)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{entry} failed: CUDA error {rc}")

@@ -100,17 +100,12 @@ paged_gather_bytes.launches = 0   # kernel launches since the last reset
 
 def _launch(table_bytes, idx, out, c):
     """One call of ntrace_gather_bytes on the current CUDA stream."""
-    from ntrace_tpu_torch.kernels.build import library
+    from ntrace_tpu_torch.kernels.build import launch
 
-    lib = library()
     with torch.cuda.device(idx.device):
         stream = torch.cuda.current_stream(idx.device).cuda_stream
-        rc = lib.ntrace_gather_bytes(
-            table_bytes.data_ptr(), idx.data_ptr(), out.data_ptr(),
-            idx.shape[0], c, table_bytes.shape[0], stream)
-    if rc != 0:
-        raise RuntimeError(f"ntrace_gather_bytes launch failed: CUDA error "
-                           f"{rc}")
+        launch("ntrace_gather_bytes", table_bytes.data_ptr(), idx.data_ptr(),
+               out.data_ptr(), idx.shape[0], c, table_bytes.shape[0], stream)
 
 
 class GatherTable:

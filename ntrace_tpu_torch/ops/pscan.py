@@ -70,19 +70,15 @@ def _launch(x, out, op, reverse):
     """One call of ntrace_row_scan_i32 (its two passes) on the current CUDA
     stream."""
     global _tile
-    from ntrace_tpu_torch.kernels.build import library
+    from ntrace_tpu_torch.kernels.build import launch, library
 
-    lib = library()
     if not _tile:
-        _tile = lib.ntrace_row_scan_tile()
+        _tile = library().ntrace_row_scan_tile()
     rows, n = x.shape
     tiles = -(-n // _tile)
     agg = torch.empty((rows * tiles,), dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.ntrace_row_scan_i32(
-            x.data_ptr(), out.data_ptr(), agg.data_ptr(), agg.numel(), rows,
-            n, int(op == "max"), int(reverse), stream)
-    if rc != 0:
-        raise RuntimeError(f"ntrace_row_scan_i32 launch failed: CUDA error "
-                           f"{rc}")
+        launch("ntrace_row_scan_i32", x.data_ptr(), out.data_ptr(),
+               agg.data_ptr(), agg.numel(), rows, n, int(op == "max"),
+               int(reverse), stream)

@@ -18,6 +18,7 @@ import torch
 from ntrace_tpu_torch.host import Camera
 from ntrace_tpu_torch.ray import rng
 from ntrace_tpu_torch.ray.raybatch import RayBatch
+from ntrace_tpu_torch.utils import timing
 
 
 def camera_arrays(camera: Camera, width: int, height: int,
@@ -28,8 +29,7 @@ def camera_arrays(camera: Camera, width: int, height: int,
     aspect = width / height
 
     def f32(a):
-        return torch.as_tensor(np.asarray(a, dtype=np.float32),
-                               device=device)
+        return timing.upload(np.asarray(a, dtype=np.float32), device)
 
     return dict(
         pos=f32(camera.position),

@@ -23,7 +23,10 @@ for bit.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from ntrace_tpu_torch.utils import timing
 
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -36,7 +39,7 @@ def prng_key(seed: int, device) -> torch.Tensor:
     seed = int(seed)
     if not -2 ** 31 <= seed < 2 ** 31:
         raise ValueError(f"seed {seed} outside the int32 range")
-    return torch.tensor([0, seed & _M32], dtype=torch.int64, device=device)
+    return timing.upload(np.array([0, seed & _M32], np.int64), device)
 
 
 def _rotl(v: torch.Tensor, r: int) -> torch.Tensor:
@@ -66,7 +69,7 @@ def _counters(n: int, device):
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """jax.random.split(key, num): (num, 2) int64 keys."""
-    k1, k2 = (int(w) for w in key.tolist())
+    k1, k2 = (int(w) for w in timing.read(key))
     hi, lo = _counters(num, key.device)
     b1, b2 = threefry2x32(k1, k2, hi, lo)
     return torch.stack([b1, b2], dim=1)
@@ -74,7 +77,7 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
 
 def random_bits32(key: torch.Tensor, shape) -> torch.Tensor:
     """32 random bits per element of `shape` (int64 holding uint32)."""
-    k1, k2 = (int(w) for w in key.tolist())
+    k1, k2 = (int(w) for w in timing.read(key))
     n = 1
     for s in shape:
         n *= int(s)

@@ -86,7 +86,7 @@ from ntrace_tpu_torch.trace.packet_ifif import trace_packet_ifif
 from ntrace_tpu_torch.trace.packet_pipe import trace_packet_pipe
 from ntrace_tpu_torch.trace.packet_wide import trace_packet_wide
 from ntrace_tpu_torch.trace.packet_ww import trace_packet_ww
-from ntrace_tpu_torch.utils.timing import StageTimer
+from ntrace_tpu_torch.utils import timing
 
 PACKET_ENGINES = ("auto", "wavefront", "packet")
 # Engines that trace the packed tables, by the name the renderer keeps.
@@ -245,11 +245,15 @@ def _compact_trace(tracer, batch: RayBatch, cap: int, any_hit: bool,
         raise ValueError(f"compact_rays must be on, off or auto, not "
                          f"{compact!r}")
     n = batch.num_rays
-    if compact != "off" and n > 8192:
+    if compact == "off" or n <= 8192:
+        return _trace_batched(tracer, batch, cap, any_hit)
+    with timing.span("ntrace.compact"):
         live_mask = batch.tmax > batch.tmin
         slots = torch.arange(n, device=live_mask.device)
-        live, last = torch.stack([live_mask.sum(), torch.where(
-            live_mask, slots, -1).max()]).tolist()
+        found = torch.stack([live_mask.sum(),
+                             torch.where(live_mask, slots, -1).max()])
+        with timing.span("ntrace.compact.live_read"):
+            live, last = timing.read(found).tolist()
         # Dead rays sort last, but a live ray may share their key, so the
         # prefix runs through the last live slot.
         prefix = last + 1
@@ -260,7 +264,7 @@ def _compact_trace(tracer, batch: RayBatch, cap: int, any_hit: bool,
             pad = n - prefix
             return (torch.cat([tri, tri.new_full((pad,), -1)]),
                     *(torch.cat([a, a.new_zeros((pad,))]) for a in (t, u, v)))
-    return _trace_batched(tracer, batch, cap, any_hit)
+        return _trace_batched(tracer, batch, cap, any_hit)
 
 
 class Renderer:
@@ -302,10 +306,12 @@ class Renderer:
             raise ValueError(f"unknown engine {engine!r}")
         # Packed-direct: builder="lbvh" builds the packet kernel's tables
         # on the device (the reference's path on its accelerator).
-        self.timer = StageTimer(self.device)
+        self.timer = timing.StageTimer(self.device)
+        self.frames = 0         # render() calls: the frame number of spans
         direct = (flat is None and cfg.engine in ("auto", "packet")
                   and build_cfg.builder == "lbvh")
-        with self.timer.stage("build"):
+        # Set-up, not the hot path: the build is always timed.
+        with timing.tracing(), self.timer.stage("build"):
             if direct:
                 self.flat = None
                 self.packed = build_lbvh_packed(
@@ -585,8 +591,8 @@ class Renderer:
         hit_pos = batch.orig + torch.where(hit_mask, t, 0.0)[:, None] \
             * batch.dirn
         if mode == "shadow":
-            light = torch.from_numpy(np.asarray(
-                self._default_light(camera), np.float32)).to(self.device)
+            light = timing.upload(np.asarray(self._default_light(camera),
+                                             np.float32), self.device)
             sb = raygen.shadow(hit_pos, normals, light, self.eps)
             return RayBatch(sb.orig, sb.dirn, sb.tmin,
                             torch.where(hit_mask, sb.tmax, 0.0),
@@ -600,8 +606,9 @@ class Renderer:
             sec = RayBatch(sec.orig, sec.dirn, sec.tmin,
                            torch.where(live, sec.tmax, 0.0), sec.slot_to_id)
             if cfg.sort_secondary:
-                sec = morton_sort_rays(sec, self.scene_lo, self.scene_hi,
-                                       direction_major=(mode != "ao"))
+                with timing.span("ntrace.sort"):
+                    sec = morton_sort_rays(sec, self.scene_lo, self.scene_hi,
+                                           direction_major=(mode != "ao"))
             return sec, mode == "ao"
         raise ValueError(f"no secondary pass for mode {mode!r}")
 
@@ -631,21 +638,34 @@ class Renderer:
         return _trace_batched(tr, batch, self._cap(), any_hit)
 
     def render(self, camera: Camera, mode: str | None = None) -> RenderResult:
-        cfg = self.cfg
-        mode = mode or cfg.mode
+        """One frame. Its stats hold the ray counts of each pass and the
+        frame's copies between host and device (utils/timing.py: copies,
+        copy_bytes); while tracing is on, also each stage's wall and host
+        milliseconds (<stage>, host_<stage>)."""
+        mode = mode or self.cfg.mode
         if mode == "textured":
             raise NotImplementedError(
                 "mode 'textured' is not ported yet (ROADMAP queue 1, item 8: "
                 "render/texture.py)")
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}")
+        timer = timing.StageTimer(self.device)
+        self.frames += 1
+        with timer.frame("ntrace.render", str(self.frames)):
+            img, hit_tri, hit_t = self._render(camera, mode, timer)
+        return RenderResult(image=img, hit_tri=hit_tri, hit_t=hit_t,
+                            stats=timer.ms())
+
+    def _render(self, camera: Camera, mode: str, timer: timing.StageTimer):
+        """One frame of render(): (image, hit_tri, hit_t) on the host."""
+        cfg = self.cfg
         W, H = cfg.width, cfg.height
-        timer = StageTimer(self.device)
         order, _ = pixel_table(W, H)
         cam = raygen.camera_arrays(camera, W, H, self.device)
         with timer.stage("raygen"):
-            batch = raygen.primary(
-                cam, W, H, torch.from_numpy(order.copy()).to(self.device))
+            with timing.span("ntrace.upload_pixels"):
+                pixels = timing.upload(order.copy(), self.device)
+            batch = raygen.primary(cam, W, H, pixels)
         with timer.stage("prepare_primary"):
             self.prepare_primary(cam, W, H)
         with timer.stage("trace_primary"):
@@ -692,22 +712,14 @@ class Renderer:
             fb = torch.zeros((W * H, 3), dtype=torch.float32,
                              device=self.device)
             fb[batch.slot_to_id.long()] = color
-            img = fb.cpu().numpy().reshape(H, W, 3)
+            img = timing.read(fb).reshape(H, W, 3)
         with timer.stage("readback"):
-            hit_tri = unsort(tri, batch.slot_to_id).cpu().numpy()
-            hit_t = unsort(t, batch.slot_to_id).cpu().numpy()
-        stats = timer.ms()
-        # Mrays/s of each traced pass (its trace stage's wall time).
-        for k in list(stats):
-            if k.startswith("rays_"):
-                name = k[5:]
-                if stats.get(f"trace_{name}", 0) > 0:
-                    stats[f"mrays_{name}"] = (stats[k] / 1e6
-                                              / (stats[f"trace_{name}"] / 1e3))
-        return RenderResult(image=img, hit_tri=hit_tri, hit_t=hit_t,
-                            stats=stats)
+            hit_tri = timing.read(unsort(tri, batch.slot_to_id))
+            hit_t = timing.read(unsort(t, batch.slot_to_id))
+        return img, hit_tri, hit_t
 
-    def _path_trace(self, key, batch: RayBatch, tri, t, timer: StageTimer):
+    def _path_trace(self, key, batch: RayBatch, tri, t,
+                    timer: timing.StageTimer):
         """`bounces`-bounce diffuse path tracing with emissive materials."""
         cfg = self.cfg
         R = batch.num_rays
@@ -740,7 +752,8 @@ class Renderer:
                               self.scene_scale * 10)), 0.0),
                           torch.arange(R, dtype=torch.int32, device=dev))
             if cfg.sort_secondary:
-                nb = morton_sort_rays(nb, self.scene_lo, self.scene_hi)
+                with timing.span("ntrace.sort"):
+                    nb = morton_sort_rays(nb, self.scene_lo, self.scene_hi)
             with timer.stage(f"trace_bounce{b}"):
                 btri, bt, _, _ = self._trace_secondary(nb, False)
             timer.count(f"rays_bounce{b}", R)

@@ -527,7 +527,7 @@ def launch(entry: str, ints, tensors, n_rays: int, dev):
     `entry` on the current stream: its pointer arguments are `tensors`
     (None passes a null pointer), then the ints, then the four outputs and
     the stream. Raises on a launch error."""
-    from ntrace_tpu_torch.kernels.build import library
+    from ntrace_tpu_torch.kernels.build import launch as call
 
     outs = (torch.empty((n_rays,), dtype=torch.int32, device=dev),
             *(torch.empty((n_rays,), dtype=torch.float32, device=dev)
@@ -535,10 +535,7 @@ def launch(entry: str, ints, tensors, n_rays: int, dev):
     ptrs = [None if a is None else a.data_ptr() for a in tensors]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(library(), entry)(*ptrs, *ints,
-                                       *(o.data_ptr() for o in outs), stream)
-    if rc != 0:
-        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
+        call(entry, *ptrs, *ints, *(o.data_ptr() for o in outs), stream)
     return outs
 
 

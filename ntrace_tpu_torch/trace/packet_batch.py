@@ -181,7 +181,7 @@ def launch_batch(sched: Schedule, tables, orig, dirn, tmin, tmax, any_hit,
     bdl rows, drain_min, qgroup and merge_sibs; each then the stack's
     entries, stack_need(max_depth), which sizes the block's shared
     memory."""
-    from ntrace_tpu_torch.kernels.build import library
+    from ntrace_tpu_torch.kernels.build import launch
 
     for t in (tables.nodes8, tables.tris12):
         if not t.is_contiguous() or t.data_ptr() % 16:
@@ -192,15 +192,12 @@ def launch_batch(sched: Schedule, tables, orig, dirn, tmin, tmax, any_hit,
              "ntrace_packet_bdl": (rows, dmin, qgroup, int(merge_sibs))}
     with torch.cuda.device(orig.device):
         stream = torch.cuda.current_stream(orig.device).cuda_stream
-        rc = getattr(library(), sched.entry)(
-            tables.nodes8.data_ptr(), tables.tris12.data_ptr(),
-            orig.data_ptr(), dirn.data_ptr(), tmin.data_ptr(),
-            tmax.data_ptr(), orig.shape[0], tables.nodes_per_row,
-            tables.tris_per_row, int(any_hit), *extra[sched.entry],
-            sched.stack_need(tables.max_depth),
-            *(o.data_ptr() for o in outs), stream)
-    if rc != 0:
-        raise RuntimeError(f"{sched.entry} launch failed: CUDA error {rc}")
+        launch(sched.entry, tables.nodes8.data_ptr(),
+               tables.tris12.data_ptr(), orig.data_ptr(), dirn.data_ptr(),
+               tmin.data_ptr(), tmax.data_ptr(), orig.shape[0],
+               tables.nodes_per_row, tables.tris_per_row, int(any_hit),
+               *extra[sched.entry], sched.stack_need(tables.max_depth),
+               *(o.data_ptr() for o in outs), stream)
 
 
 def occupancy(sched: Schedule, max_depth: int, any_hit: bool, rows: int,
@@ -208,14 +205,11 @@ def occupancy(sched: Schedule, max_depth: int, any_hit: bool, rows: int,
     """What a launch on tables of depth max_depth runs, from the CUDA
     runtime on the current device: (registers a thread, shared memory a
     block in bytes, resident blocks an SM)."""
-    from ntrace_tpu_torch.kernels.build import library
+    from ntrace_tpu_torch.kernels.build import launch
 
     out = (ctypes.c_int * 3)()
-    rc = getattr(library(), sched.entry + "_occupancy")(
-        int(any_hit), rows, qgroup, sched.stack_need(max_depth), out)
-    if rc != 0:
-        raise RuntimeError(f"{sched.entry}_occupancy failed: CUDA error "
-                           f"{rc}")
+    launch(sched.entry + "_occupancy", int(any_hit), rows, qgroup,
+           sched.stack_need(max_depth), out)
     return tuple(out)
 
 

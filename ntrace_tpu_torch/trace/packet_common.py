@@ -81,7 +81,7 @@ def launch_traversal(name: str, tables, orig, dirn, tmin, tmax, any_hit,
     """One launch of the traversal kernel `name` (the C entry points of
     packet_trace.cu, packet_ww.cu and packet_ifif.cu share one signature)
     on the current CUDA stream; raises on a launch error."""
-    from ntrace_tpu_torch.kernels.build import library
+    from ntrace_tpu_torch.kernels.build import launch
 
     for t in (tables.nodes8, tables.tris12):
         if not t.is_contiguous() or t.data_ptr() % 16:
@@ -89,14 +89,11 @@ def launch_traversal(name: str, tables, orig, dirn, tmin, tmax, any_hit,
                              "aligned (node records load as float4)")
     with torch.cuda.device(orig.device):
         stream = torch.cuda.current_stream(orig.device).cuda_stream
-        rc = getattr(library(), name)(
-            tables.nodes8.data_ptr(), tables.tris12.data_ptr(),
-            orig.data_ptr(), dirn.data_ptr(), tmin.data_ptr(),
-            tmax.data_ptr(), orig.shape[0], tables.nodes_per_row,
-            tables.tris_per_row, int(any_hit), *(o.data_ptr() for o in outs),
-            stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+        launch(name, tables.nodes8.data_ptr(), tables.tris12.data_ptr(),
+               orig.data_ptr(), dirn.data_ptr(), tmin.data_ptr(),
+               tmax.data_ptr(), orig.shape[0], tables.nodes_per_row,
+               tables.tris_per_row, int(any_hit),
+               *(o.data_ptr() for o in outs), stream)
 
 
 def slab_child(rec: torch.Tensor, base: int, ox, oy, oz, ix, iy, iz,

@@ -113,7 +113,7 @@ def _launch(tables: WideTables, orig, dirn, tmin, tmax, any_hit, exact,
             outs):
     """One launch of ntrace_packet_wide on the current CUDA stream; raises
     on a launch error."""
-    from ntrace_tpu_torch.kernels.build import library
+    from ntrace_tpu_torch.kernels.build import launch
 
     for t in (tables.nodes_w, tables.tris12):
         if not t.is_contiguous() or t.data_ptr() % 16:
@@ -121,15 +121,12 @@ def _launch(tables: WideTables, orig, dirn, tmin, tmax, any_hit, exact,
                              "aligned (node slots load as float4)")
     with torch.cuda.device(orig.device):
         stream = torch.cuda.current_stream(orig.device).cuda_stream
-        rc = library().ntrace_packet_wide(
-            tables.nodes_w.data_ptr(), tables.tris12.data_ptr(),
-            orig.data_ptr(), dirn.data_ptr(), tmin.data_ptr(),
-            tmax.data_ptr(), orig.shape[0], tables.nodes_w.shape[0],
-            tables.tris12.shape[0], tables.tris_per_row, int(any_hit),
-            int(exact), *(o.data_ptr() for o in outs), stream)
-    if rc != 0:
-        raise RuntimeError(f"ntrace_packet_wide launch failed: CUDA error "
-                           f"{rc}")
+        launch("ntrace_packet_wide", tables.nodes_w.data_ptr(),
+               tables.tris12.data_ptr(), orig.data_ptr(), dirn.data_ptr(),
+               tmin.data_ptr(), tmax.data_ptr(), orig.shape[0],
+               tables.nodes_w.shape[0], tables.tris12.shape[0],
+               tables.tris_per_row, int(any_hit), int(exact),
+               *(o.data_ptr() for o in outs), stream)
 
 
 def _tree(x: torch.Tensor, op) -> torch.Tensor:

@@ -1,24 +1,69 @@
-"""Stage timing and CUDA-event kernel timing (counterpart of
-ntrace_tpu/utils/timing.py).
+"""The port's tracer: stage times, profiler ranges and copy counters
+(counterpart of ntrace_tpu/utils/timing.py), and CUDA-event kernel timing.
 
-On a CUDA device a stage ends with torch.cuda.synchronize(), so its wall
-time covers the device work and not only the enqueue. `cuda_ms` times
-device work with CUDA events.
+Tracing is on while a torch profiler records, or inside `tracing()`; else
+it is off and costs nothing on the hot path: a stage neither synchronises
+nor opens a range, and `span` does nothing. On, a StageTimer stage ends
+with torch.cuda.synchronize(), so its wall time covers the device work
+and not only the enqueue, and records the host's part (the time to issue
+the stage's work) under host_<stage>; every stage and span is a
+`torch.profiler.record_function` range, on the clock of the profiler's
+device trace. No span but a stage synchronises.
+
+`upload` and `read` are the copies between host and device that a frame
+makes: they count `copies` and `copy_bytes` into the StageTimer whose
+`frame` is open, traced or not (on a CPU device the same sites count,
+though nothing crosses a bus). `cuda_ms` times device work with CUDA
+events.
 """
 
 from __future__ import annotations
 
 import time
 from contextlib import contextmanager
+from contextvars import ContextVar
 
+import numpy as np
 import torch
+from torch.profiler import record_function
+
+_tracing = ContextVar("ntrace_tracing", default=False)
+_frame = ContextVar("ntrace_frame", default=None)   # the counting StageTimer
+
+
+def tracing_on() -> bool:
+    """True while a torch profiler records or inside `tracing()`."""
+    return _tracing.get() or torch._C._autograd._profiler_enabled()
+
+
+@contextmanager
+def tracing():
+    """Tracing on inside, with no profiler needed: stage times and
+    ranges."""
+    token = _tracing.set(True)
+    try:
+        yield
+    finally:
+        _tracing.reset(token)
+
+
+@contextmanager
+def span(name: str, args: str | None = None):
+    """The profiler range `name` (with `args`) around the body while
+    tracing is on; nothing while it is off."""
+    if not tracing_on():
+        yield
+        return
+    with record_function(name, args):
+        yield
 
 
 class StageTimer:
-    """Per-stage wall times (raygen/trace/shade) and plain counters.
+    """Per-stage wall and host times (raygen/trace/shade), taken while
+    tracing is on, and plain counters, always kept.
 
-    `ms()` scales only the times, so counters (ray counts, ...) pass through
-    unchanged.
+    `ms()` scales only the times, so counters (ray counts, copies, ...)
+    pass through unchanged.
     """
 
     def __init__(self, device):
@@ -31,13 +76,33 @@ class StageTimer:
             torch.cuda.synchronize(self.device)
 
     @contextmanager
+    def frame(self, name: str, args: str | None = None):
+        """The root span `name` of one frame; `upload` and `read` inside
+        count into this timer."""
+        token = _frame.set(self)
+        try:
+            with span(name, args):
+                yield
+        finally:
+            _frame.reset(token)
+
+    @contextmanager
     def stage(self, name: str):
+        """The stage `name` as the span ntrace.<name>, timed while tracing
+        is on."""
+        if not tracing_on():
+            yield
+            return
         self._sync()
-        t0 = time.perf_counter()
-        yield
-        self._sync()
-        self.stages[name] = (self.stages.get(name, 0.0)
-                             + time.perf_counter() - t0)
+        # The range's own cost stays out of the times.
+        with record_function(f"ntrace.{name}"):
+            t0 = time.perf_counter()
+            yield
+            t1 = time.perf_counter()
+            self._sync()
+            t2 = time.perf_counter()
+        for key, s in ((name, t2 - t0), (f"host_{name}", t1 - t0)):
+            self.stages[key] = self.stages.get(key, 0.0) + s
 
     def count(self, name: str, n: float):
         self.counts[name] = self.counts.get(name, 0.0) + n
@@ -45,6 +110,27 @@ class StageTimer:
     def ms(self) -> dict[str, float]:
         return {**{k: v * 1e3 for k, v in self.stages.items()},
                 **self.counts}
+
+
+def _copied(nbytes: int):
+    timer = _frame.get()
+    if timer is not None:
+        timer.count("copies", 1)
+        timer.count("copy_bytes", nbytes)
+
+
+def upload(a: np.ndarray, device) -> torch.Tensor:
+    """The host array `a` as a tensor on `device`: one copy of its bytes."""
+    t = torch.as_tensor(a, device=device)
+    _copied(t.numel() * t.element_size())
+    return t
+
+
+def read(t: torch.Tensor) -> np.ndarray:
+    """The tensor `t` on the host, as numpy: one copy of its bytes."""
+    a = t.cpu().numpy()
+    _copied(a.nbytes)
+    return a
 
 
 def cuda_ms(fn, *, warmup: int = 1, iters: int = 10) -> list[float]:

@@ -38,6 +38,7 @@ from ntrace_tpu_torch.ray.raybatch import (RayBatch, morton_sort_rays,
                                            unsort)
 from ntrace_tpu_torch.render import renderer as port
 from ntrace_tpu_torch.render.renderer import Renderer, build_accel
+from ntrace_tpu_torch.utils import timing
 
 W, H, SAMPLES = 64, 48, 2
 BENCH_BUILD = BuildConfig(builder="binned_sah", sah_tri_cost=0.02,
@@ -259,7 +260,8 @@ def test_render_secondary_matches_jax(conference, jax_frames, mode, engine):
     scene, flat = conference
     r = Renderer(scene, BENCH_BUILD, _cfg(mode, engine), flat=flat,
                  device="cpu")
-    got = r.render(default_camera("conference"))
+    with timing.tracing():
+        got = r.render(default_camera("conference"))
     ref = jax_frames[mode]
     assert got.image.shape == (H, W, 3) and got.image.dtype == np.float32
     np.testing.assert_array_equal(got.hit_tri, ref.hit_tri)
@@ -271,7 +273,8 @@ def test_render_secondary_matches_jax(conference, jax_frames, mode, engine):
     for p in passes:
         want = W * H * (SAMPLES if mode in ("ao", "diffuse") else 1)
         assert got.stats[f"rays_{p}"] == ref.stats[f"rays_{p}"] == want
-        assert f"trace_{p}" in got.stats and f"mrays_{p}" in got.stats
+        assert f"trace_{p}" in got.stats and f"host_trace_{p}" in got.stats
+        assert f"mrays_{p}" not in got.stats
 
 
 @pytest.mark.parametrize("mode", ["shadow", "ao", "diffuse"])
