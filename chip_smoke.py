@@ -62,7 +62,13 @@ Phases, each printed as it completes:
      trace_cpu_golden on 4,096 (0 tie-aware mismatches) and brute_force_mt
      on 256 (exact tri); images finite and not black; diffuse ray 411,517
      (a hit on the shared edge of two flat leaf boxes) bit-equal to
-     brute_force_mt
+     brute_force_mt; csrc/secondary_rays.cu launched once by each AO and
+     diffuse render() (and by no other mode, here and in every recorded
+     render after), and against its plain version on the AO frame's
+     primary hits, AO and diffuse: random words, origins, tmin, tmax and
+     keys bit-equal (keys where the directions are), the direction
+     components that differ counted (at most 2 ulps), the kernel's time
+     beside its bound and the plain chain's time
   9. the while-while and speculative while-while kernels
      (csrc/packet_ww.cu, csrc/packet_ifif.cu): the phase-3 soup check for
      each; all four modes rendered with engine packet_ww and packet_ifif,
@@ -88,7 +94,8 @@ Phases, each printed as it completes:
      brute_force_anyhit; the kernel bit-equal to its twin on a stride
      sample of the live AO rays, whose work gives the bound; the any-hit
      rays whose tri changed against PACKET_PARENT; the AO pass time
-     beside the bound
+     beside the bound; csrc/secondary_rays.cu on the frame's primary hits
+     as in phase 8
  11. the pipelined while-while and 8-wide packet kernels
      (csrc/packet_pipe.cu, csrc/packet_wide.cu): the phase-3 soup check for
      each (wide at tris_per_row 4, exact False and True); render() of
@@ -208,8 +215,9 @@ from ntrace_tpu_torch.kernels.build import build
 from ntrace_tpu_torch.ops.gather import (GatherTable, paged_gather_bytes,
                                          paged_gather_bytes_ref)
 from ntrace_tpu_torch.ops.pscan import OPS, row_scan_i32, row_scan_i32_ref
-from ntrace_tpu_torch.ray import raygen
+from ntrace_tpu_torch.ray import raygen, rng
 from ntrace_tpu_torch.ray.pixeltable import pixel_table
+from ntrace_tpu_torch.ray.raybatch import DEAD_KEY, RayBatch, sort_by_key
 from ntrace_tpu_torch.render.renderer import (Renderer, build_accel,
                                               pick_layout)
 from ntrace_tpu_torch.tables import (WideTables, tables_from_packed,
@@ -247,6 +255,10 @@ VISITS_SOURCE = "ntrace_tpu_torch/csrc/dense_visits.cu"
 VISITS_REPLACES = "ntrace_tpu/trace/binraster_dense.py:1270"
 SCAN_SOURCE = "ntrace_tpu_torch/csrc/row_scan.cu"
 SCAN_REPLACES = "ntrace_tpu/ops/pscan.py:33"
+SECONDARY_SOURCE = "ntrace_tpu_torch/csrc/secondary_rays.cu"
+# render() modes whose secondary rays come from csrc/secondary_rays.cu, one
+# launch a frame.
+KERNEL_RAYGEN_MODES = ("ao", "diffuse")
 # The traversal engines of the secondary slice: kernel wrapper, twin,
 # source and the TPU kernel each replaces.
 ENGINES = {
@@ -1035,12 +1047,23 @@ def reset_counts():
         kernel.launches = 0
     row_scan_i32.launches = 0
     paged_gather_bytes.launches = 0
+    raygen.secondary_rays.launches = 0
 
 
 def launch_counts() -> dict:
     return {**{name: e[0].launches for name, e in ALL_ENGINES.items()},
             "row_scan": row_scan_i32.launches,
-            "gather": paged_gather_bytes.launches}
+            "gather": paged_gather_bytes.launches,
+            "secondary_rays": raygen.secondary_rays.launches}
+
+
+def check_raygen_launches(tag, mode, counts, frames=1):
+    """`frames` render()s of `mode` launched csrc/secondary_rays.cu once
+    each for AO and diffuse, never for the other modes."""
+    want = frames if mode in KERNEL_RAYGEN_MODES else 0
+    if counts["secondary_rays"] != want:
+        raise AssertionError(f"{tag}: {counts['secondary_rays']} "
+                             f"secondary_rays launches, want {want}")
 
 
 @contextmanager
@@ -1110,6 +1133,7 @@ def render_recorded(r, mode, camera):
     with recorded(r) as passes, tracing():
         res = r.render(camera, mode)
     counts = launch_counts()
+    check_raygen_launches(f"render({mode})", mode, counts)
     names = PASSES[mode]
     if len(passes) != len(names):
         raise AssertionError(f"render({mode}) traced {len(passes)} passes, "
@@ -1121,11 +1145,13 @@ def phase_secondary(r, smi):
     """Phase 8: render() of every secondary mode on phase 4's renderer
     (engine packet), every traced pass held to the oracles; then one warm
     AO and one warm diffuse frame under the profiler. Returns the results
-    and passes by mode."""
+    and passes by mode, and the csrc/secondary_rays.cu launches those
+    render()s counted."""
     camera = default_camera("conference")
-    out = {}
+    out, raygen_launches = {}, 0
     for mode in SECONDARY_MODES:
         res, counts, passes = render_recorded(r, mode, camera)
+        raygen_launches += counts["secondary_rays"]
         if counts["packet"] != len(passes) or any(
                 counts[k] for k in ALL_ENGINES if k != "packet"):
             raise AssertionError(f"render({mode}): launches {counts}, want "
@@ -1145,7 +1171,7 @@ def phase_secondary(r, smi):
     for mode in ("ao", "diffuse"):
         profile_once(f"[8] profile of one warm render({mode})",
                      lambda: r.render(camera, mode), smi, top=10)
-    return out
+    return out, raygen_launches
 
 
 def check_crack_ray(scene, rays, any_hit, hits, i=CRACK_RAY):
@@ -1161,6 +1187,80 @@ def check_crack_ray(scene, rays, any_hit, hits, i=CRACK_RAY):
                              f"brute_force_mt tri {bf.tri[0]} t {bf.t[0]}")
     log(f"[8] diffuse ray {i} (a shared edge of two flat leaf boxes): tri "
         f"{tri}, t {t[0]!r}, bit-equal to brute_force_mt")
+
+
+def ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Distance in ulps between float32 tensors (-0.0 and 0.0 are 0
+    apart)."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def phase_secondary_rays(tag, r, prim, smi):
+    """Phases 8 (conference) and 10 (hairball): csrc/secondary_rays.cu
+    against its plain version on the card, on the primary pass `prim`
+    (rays, any_hit, hits) that r.render() traced, at the renderer's
+    samples and seed, AO and diffuse. Random words, origins, tmin and tmax
+    bit-equal, keys wherever the directions are; directions within 2 ulps,
+    the components that differ counted. The kernel's ms (CUDA events,
+    warm, median of 20) beside its bound (bytes: the primary rays and hits,
+    each distinct normal row gathered once, the outputs) and the plain
+    chain's ms, and the sort that follows it in render(). Returns the
+    diffuse run's row."""
+    (orig, dirn, tmin, tmax), _, hits = prim
+    batch = RayBatch(orig, dirn, tmin, tmax)
+    cfg, R, S = r.cfg, orig.shape[0], r.cfg.samples
+    n, words = R * S, rng.key_words(cfg.seed)
+    row = None
+    for mode in KERNEL_RAYGEN_MODES:
+        args = (batch, hits[0], hits[1], r.geom_normals, S,
+                r.secondary_length(mode), r.eps, r.scene_lo, r.scene_hi,
+                mode != "ao")
+        bits = torch.empty((n, 2), dtype=torch.int32, device=orig.device)
+        got, key = raygen.secondary_rays(words, *args, bits=bits)
+        want, want_key = raygen.secondary_rays_ref(words, *args)
+        fails = [name for name, a, b in (
+            ("random words", bits, rng.random_bits32(
+                words, (n, 2), orig.device).to(torch.int32)),
+            ("origins", got.orig, want.orig), ("tmin", got.tmin, want.tmin),
+            ("tmax", got.tmax, want.tmax))
+            if not _bit_equal(a, b)]
+        du = ulps(got.dirn, want.dirn)
+        same = (du == 0).all(dim=1)
+        if not torch.equal(key[same], want_key[same]):
+            fails.append("keys where the directions are equal")
+        if int(du.max()) > 2:
+            fails.append(f"directions ({int(du.max())} ulps apart)")
+        if fails:
+            raise AssertionError(f"{tag} secondary_rays {mode}: "
+                                 f"{', '.join(fails)} differ from "
+                                 "secondary_rays_ref")
+        ms = statistics.median(cuda_ms(
+            lambda: raygen.secondary_rays(words, *args), warmup=2, iters=20))
+        plain = statistics.median(cuda_ms(
+            lambda: raygen.secondary_rays_ref(words, *args), warmup=1,
+            iters=5))
+        sort_ms = statistics.median(cuda_ms(lambda: sort_by_key(got, key),
+                                            warmup=2, iters=20))
+        rows = torch.unique(hits[0].clamp(min=0)).numel()
+        moved = nbytes(orig, dirn, hits[0], hits[1]) + rows * 12 + nbytes(
+            got.orig, got.dirn, got.tmin, got.tmax, key)
+        bnd = bound(moved, 0)
+        log(f"{tag} secondary_rays {mode} ({R} primary rays x {S}, "
+            f"{int((key == DEAD_KEY).sum())} dead): random words, origins, "
+            f"tmin, tmax bit-equal to secondary_rays_ref, keys on the "
+            f"{int(same.sum())} rays whose directions are; direction "
+            f"components differing {int((du > 0).sum())} of {3 * n} (max "
+            f"{int(du.max())} ulps), keys differing "
+            f"{int((key != want_key).sum())}; kernel median {ms:.4f} ms of "
+            f"20, bound {bnd[0]:.4f} ms by {bnd[1]} ({moved / 1e6:.1f} MB; "
+            f"{ms / bnd[0]:.1f}x), plain chain {plain:.3f} ms, then "
+            f"sort_by_key {sort_ms:.4f} ms, on {smi}")
+        row = {"ms": ms, "plain_ms": plain, "bound": bnd, "sort_ms": sort_ms,
+               "max_abs_err": float((got.dirn - want.dirn).abs().max())}
+    return row
 
 
 def same_rays(a, b) -> bool:
@@ -1633,7 +1733,9 @@ def phase_hairball_ao(device, hair, smi, parent, width=WIDTH,
     if rh.flat is not None or counts["row_scan"] < 2 \
             or counts["packet"] != 2 or len(passes) != 2:
         raise AssertionError(f"hairball AO skipped a kernel: {counts}")
+    check_raygen_launches("[10] hairball AO", "ao", counts)
     check_image("[10] hairball AO", res.image, width, height)
+    phase_secondary_rays("[10] hairball", rh, passes[0], smi)
     rays, any_hit, hits = passes[1]
     host = [a.cpu().numpy() for a in rays]
     R = len(host[0])
@@ -2827,6 +2929,7 @@ def phase_fairy(device, n_tris=FAIRY_TRIS, width=WIDTH, height=HEIGHT):
             res = rh.render(camera, mode)
         passes[mode] = (res, got)
     counts = launch_counts()
+    check_raygen_launches("[15] diffuse and AO", "ao", counts, frames=2)
     if counts["row_scan"] != scans or counts["packet"] != 4 or any(
             counts[k] for k in ALL_ENGINES if k != "packet"):
         raise AssertionError(f"config #3 launches {counts}: want one "
@@ -3013,7 +3116,9 @@ def main():
     del rl, conf_dev, hair_dev
     mark("7")
 
-    secondary = phase_secondary(r, smi)
+    secondary, raygen_launches = phase_secondary(r, smi)
+    raygen_row = phase_secondary_rays("[8]", r, secondary["ao"][1]["primary"],
+                                      smi)
     phase_soup_variants(device)
     variant_launches = phase_variant_renders(r, secondary)
     any_hit_against_parent("[9]", r.tables, secondary, ww_parent,
@@ -3139,6 +3244,14 @@ def main():
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound"][0], "bound_by": row["bound"][1],
             "library_ms": None})
+    kernels.append({
+        "name": "secondary_rays", "route": "cuda",
+        "source": SECONDARY_SOURCE, "replaces": None,
+        "launches": raygen_launches,
+        "max_abs_err": raygen_row["max_abs_err"], "ms": raygen_row["ms"],
+        "plain_ms": raygen_row["plain_ms"],
+        "bound_ms": raygen_row["bound"][0],
+        "bound_by": raygen_row["bound"][1], "library_ms": None})
     ga = gather_rows["a"]
     kernels.append({
         "name": "paged_gather", "route": "cuda", "source": GATHER_SOURCE,

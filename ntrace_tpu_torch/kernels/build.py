@@ -93,6 +93,16 @@ SIGNATURES = {
         ctypes.c_int, [_P, _P, _P, ctypes.c_longlong, _I, ctypes.c_longlong,
                        _P],
     ),
+    # secondary_rays.cu: the primary rays, hits, normals and scene box;
+    # the two threefry key words as uint32; rays, samples, length, eps,
+    # direction_major; the five outputs, the random words (or null) and the
+    # stream.
+    "ntrace_secondary_rays": (
+        ctypes.c_int,
+        [_P, _P, _P, _P, _P, _P, _P, ctypes.c_uint32, ctypes.c_uint32,
+         ctypes.c_longlong, _I, ctypes.c_float, ctypes.c_float, _I, _P, _P,
+         _P, _P, _P, _P, _P],
+    ),
     "ntrace_row_scan_tile": (ctypes.c_int, []),
     "ntrace_row_scan_i32": (
         ctypes.c_int,

@@ -17,8 +17,10 @@ jax the reference runs on). This module repeats that arithmetic:
     mantissa of a float in [1, 2), minus 1, scaled to [0, 1), max with 0).
 torch's uint32 has too few operations, so the words live in int64 and
 every step masks to 32 bits. Keys are (2,) int64 tensors holding the
-uint32 values. tests/test_torch_secondary.py holds the results to jax bit
-for bit.
+uint32 values, or the two words on the host (`key_words`), which
+`random_bits32` and `uniform` take with a device and read back from no
+tensor. tests/test_torch_secondary.py holds the results to jax bit for bit;
+csrc/secondary_rays.cu repeats `uniform` in uint32 arithmetic.
 """
 
 from __future__ import annotations
@@ -33,13 +35,18 @@ _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
 
 
-def prng_key(seed: int, device) -> torch.Tensor:
-    """jax.random.PRNGKey(seed) as a (2,) int64 tensor of uint32 words on
-    `device`; split and uniform follow the key's device."""
+def key_words(seed: int) -> tuple[int, int]:
+    """The two uint32 words of jax.random.PRNGKey(seed), on the host."""
     seed = int(seed)
     if not -2 ** 31 <= seed < 2 ** 31:
         raise ValueError(f"seed {seed} outside the int32 range")
-    return timing.upload(np.array([0, seed & _M32], np.int64), device)
+    return 0, seed & _M32
+
+
+def prng_key(seed: int, device) -> torch.Tensor:
+    """jax.random.PRNGKey(seed) as a (2,) int64 tensor of uint32 words on
+    `device`; split and uniform follow the key's device."""
+    return timing.upload(np.array(key_words(seed), np.int64), device)
 
 
 def _rotl(v: torch.Tensor, r: int) -> torch.Tensor:
@@ -75,20 +82,27 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([b1, b2], dim=1)
 
 
-def random_bits32(key: torch.Tensor, shape) -> torch.Tensor:
-    """32 random bits per element of `shape` (int64 holding uint32)."""
-    k1, k2 = (int(w) for w in timing.read(key))
+def random_bits32(key, shape, device=None) -> torch.Tensor:
+    """32 random bits per element of `shape` (int64 holding uint32). `key`
+    is a key tensor (its words read back, the bits on its device) or the
+    host words of `key_words` (the bits on `device`)."""
+    if isinstance(key, torch.Tensor):
+        k1, k2 = (int(w) for w in timing.read(key))
+        device = key.device
+    else:
+        k1, k2 = key
     n = 1
     for s in shape:
         n *= int(s)
-    hi, lo = _counters(n, key.device)
+    hi, lo = _counters(n, device)
     b1, b2 = threefry2x32(k1, k2, hi, lo)
     return (b1 ^ b2).reshape(tuple(shape))
 
 
-def uniform(key: torch.Tensor, shape) -> torch.Tensor:
-    """jax.random.uniform(key, shape, float32) on [0, 1)."""
-    bits = random_bits32(key, shape)
+def uniform(key, shape, device=None) -> torch.Tensor:
+    """jax.random.uniform(key, shape, float32) on [0, 1); `key` and
+    `device` as in random_bits32."""
+    bits = random_bits32(key, shape, device)
     fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = fbits.view(torch.float32) - 1.0
     return torch.clamp_min(floats, 0.0)

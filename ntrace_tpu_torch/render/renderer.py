@@ -50,7 +50,9 @@ tree on the host (bvh/hlbvh.py:build_hlbvh_flat), and every engine packs
 that FlatBVH on the host: the reference's packed-direct path is for lbvh
 only (ntrace_tpu/render/renderer.py:417-420). Secondary
 rays draw their random numbers from `ray/rng.py`, bit-equal to the
-reference's jax.random. Other modes,
+reference's jax.random; AO and diffuse rays, with their sort key, come
+from one launch of csrc/secondary_rays.cu on a CUDA device
+(`raygen.secondary_rays`), and only path mode uploads a key. Other modes,
 engines, builders and options raise NotImplementedError and name the
 ROADMAP item that ports them.
 """
@@ -73,7 +75,8 @@ from ntrace_tpu_torch.host import (BuildConfig, Camera, FlatBVH, RenderConfig,
 from ntrace_tpu_torch.host import pick_layout as _pick_layout
 from ntrace_tpu_torch.ray import raygen, rng
 from ntrace_tpu_torch.ray.pixeltable import pixel_table
-from ntrace_tpu_torch.ray.raybatch import RayBatch, morton_sort_rays, unsort
+from ntrace_tpu_torch.ray.raybatch import (RayBatch, morton_sort_rays,
+                                           sort_by_key, unsort)
 from ntrace_tpu_torch.tables import (tables_from_device, tables_from_packed,
                                      tables_from_wide)
 from ntrace_tpu_torch.trace import binraster as br
@@ -578,19 +581,25 @@ class Renderer:
         return (np.array([c[0], hi[1] * 0.95, c[2]], np.float32) * 0.7
                 + camera.position * 0.3)
 
+    def secondary_length(self, mode: str) -> float:
+        """Every live AO or diffuse ray's tmax: the AO radius, or ten scene
+        diagonals for a diffuse bounce."""
+        return self.cfg.ao_radius if mode == "ao" else self.scene_scale * 10.0
+
     def gen_secondary(self, camera: Camera, mode: str, batch: RayBatch,
-                      tri: torch.Tensor, t: torch.Tensor, key=None):
+                      tri: torch.Tensor, t: torch.Tensor):
         """The secondary RayBatch of `mode` as render() builds it: rays of
         missed pixels are dead (zero length), and AO and diffuse batches
         are Morton-sorted when cfg.sort_secondary (AO origin-major, diffuse
-        direction-major). Returns (batch, any_hit)."""
+        direction-major). AO and diffuse rays and their sort key come from
+        raygen.secondary_rays (one kernel launch on a CUDA device) under
+        the host key words of cfg.seed. Returns (batch, any_hit)."""
         cfg = self.cfg
-        key = rng.prng_key(cfg.seed, self.device) if key is None else key
-        hit_mask = tri >= 0
-        normals = self._unit_normals(tri, batch.dirn)
-        hit_pos = batch.orig + torch.where(hit_mask, t, 0.0)[:, None] \
-            * batch.dirn
         if mode == "shadow":
+            hit_mask = tri >= 0
+            normals = self._unit_normals(tri, batch.dirn)
+            hit_pos = batch.orig + torch.where(hit_mask, t, 0.0)[:, None] \
+                * batch.dirn
             light = timing.upload(np.asarray(self._default_light(camera),
                                              np.float32), self.device)
             sb = raygen.shadow(hit_pos, normals, light, self.eps)
@@ -598,17 +607,17 @@ class Renderer:
                             torch.where(hit_mask, sb.tmax, 0.0),
                             sb.slot_to_id), True
         if mode in ("ao", "diffuse"):
-            S = cfg.samples
-            gen = raygen.ao if mode == "ao" else raygen.diffuse
-            arg = cfg.ao_radius if mode == "ao" else self.scene_scale * 10.0
-            sec = gen(key, hit_pos, normals, S, arg, self.eps)
-            live = torch.repeat_interleave(hit_mask, S)
-            sec = RayBatch(sec.orig, sec.dirn, sec.tmin,
-                           torch.where(live, sec.tmax, 0.0), sec.slot_to_id)
+            sec, key = raygen.secondary_rays(
+                rng.key_words(cfg.seed), batch, tri, t, self.geom_normals,
+                cfg.samples, self.secondary_length(mode), self.eps,
+                self.scene_lo, self.scene_hi, direction_major=(mode != "ao"))
             if cfg.sort_secondary:
                 with timing.span("ntrace.sort"):
-                    sec = morton_sort_rays(sec, self.scene_lo, self.scene_hi,
-                                           direction_major=(mode != "ao"))
+                    sec = sort_by_key(sec, key)
+            else:
+                sec.slot_to_id = torch.arange(sec.num_rays,
+                                              dtype=torch.int32,
+                                              device=self.device)
             return sec, mode == "ao"
         raise ValueError(f"no secondary pass for mode {mode!r}")
 
@@ -676,14 +685,12 @@ class Renderer:
                                               cam=cam, canonical=True)
         timer.count("rays_primary", batch.num_rays)
         base_col = normal_color(self.geom_normals, tri)
-        key = rng.prng_key(cfg.seed, self.device)
 
         if mode == "primary":
             color = base_col
         elif mode == "shadow":
             with timer.stage("raygen_shadow"):
-                sbatch, _ = self.gen_secondary(camera, mode, batch, tri, t,
-                                               key=key)
+                sbatch, _ = self.gen_secondary(camera, mode, batch, tri, t)
             with timer.stage("trace_shadow"):
                 stri = _trace_batched(self._tracer, sbatch, self._cap(),
                                       True)[0]
@@ -692,8 +699,8 @@ class Renderer:
         elif mode in ("ao", "diffuse"):
             S = cfg.samples
             with timer.stage(f"raygen_{mode}"):
-                sec, any_hit = self.gen_secondary(camera, mode, batch, tri, t,
-                                                  key=key)
+                sec, any_hit = self.gen_secondary(camera, mode, batch, tri,
+                                                  t)
             with timer.stage(f"trace_{mode}"):
                 stri = self._trace_secondary(sec, any_hit)[0]
             timer.count(f"rays_{mode}", sec.num_rays)
@@ -706,8 +713,9 @@ class Renderer:
                 bounce = normal_color(self.geom_normals, stri).reshape(
                     -1, S, 3).mean(dim=1)
                 color = base_col * 0.5 + bounce * 0.5
-        else:
-            color = self._path_trace(key, batch, tri, t, timer)
+        else:   # path: rng.split needs the key on the device
+            color = self._path_trace(rng.prng_key(cfg.seed, self.device),
+                                     batch, tri, t, timer)
         with timer.stage("shade"):
             fb = torch.zeros((W * H, 3), dtype=torch.float32,
                              device=self.device)

@@ -476,8 +476,8 @@ def test_wrappers_reject_bad_operands():
 def test_c_entry_points_match_ctypes_signatures():
     """Each extern "C" function of csrc/*.cu takes the arguments its ctypes
     binding declares, in order and by kind: a pointer as c_void_p, an int
-    as c_int, a long long as c_longlong (nothing compiles the sources
-    here). The traversal kernels define theirs with trace_common.cuh's
+    as c_int, a long long as c_longlong, a uint32_t as c_uint32, a float
+    as c_float (nothing compiles the sources here). The traversal kernels define theirs with trace_common.cuh's
     NTRACE_TRAVERSAL_ENTRY(name, kernel), whose one signature counts for
     each name."""
     assert [p.name for p in kbuild.sources()] == ["binraster_trace.cu",
@@ -492,13 +492,18 @@ def test_c_entry_points_match_ctypes_signatures():
                                                   "packet_trace.cu",
                                                   "packet_wide.cu",
                                                   "packet_ww.cu",
-                                                  "row_scan.cu"]
+                                                  "row_scan.cu",
+                                                  "secondary_rays.cu"]
     def kind(arg: str):
         arg = " ".join(arg.replace("\\", " ").split())   # macro lines
         if "*" in arg or arg.startswith("cudaStream_t "):
             return ctypes.c_void_p
         if arg.startswith("long long "):
             return ctypes.c_longlong
+        if arg.startswith("uint32_t "):
+            return ctypes.c_uint32
+        if arg.startswith("float "):
+            return ctypes.c_float
         return ctypes.c_int if arg.startswith("int ") else arg
 
     found = {}

@@ -236,7 +236,8 @@ def test_library_path_keyed_by_sources():
                                                   "packet_trace.cu",
                                                   "packet_wide.cu",
                                                   "packet_ww.cu",
-                                                  "row_scan.cu"]
+                                                  "row_scan.cu",
+                                                  "secondary_rays.cu"]
     assert "--fmad=false" in kbuild.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in kbuild.NVCC_FLAGS
     assert "--use_fast_math" not in kbuild.NVCC_FLAGS

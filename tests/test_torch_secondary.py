@@ -1,7 +1,9 @@
 """The port's secondary-ray slice against the JAX reference (CPU): the
 threefry generator, the secondary ray generators, the Morton re-sort,
 gen_secondary, _compact_trace, and render() for shadow, ao, diffuse and
-path.
+path; `raygen.secondary_rays` on the CPU as its plain version
+`secondary_rays_ref`, and (on a CUDA device only) the kernel
+csrc/secondary_rays.cu against that plain version.
 
 Tolerances, with their reasons:
   - rng: bit-exact (integer arithmetic, and one exact float conversion).
@@ -18,6 +20,10 @@ Tolerances, with their reasons:
   - The reference's own secondary batch, fed as numpy to the port's tracer,
     gives the reference tracer's hit ids exactly (closest hit), and the
     same blocked set (any hit).
+  - secondary_rays kernel against its plain version on the card: random
+    words, origins, tmin, tmax bit-equal, and keys wherever the directions
+    are; directions within 2 ulps (CUDA's cosf and sinf against torch's
+    cos and sin on the card; their last bit may differ).
 """
 
 import jax
@@ -34,8 +40,9 @@ from ntrace_tpu.render import renderer as jax_renderer
 from ntrace_tpu.render.renderer import Renderer as JaxRenderer
 from ntrace_tpu.scenes import default_camera, get_scene
 from ntrace_tpu_torch.ray import raygen, rng
-from ntrace_tpu_torch.ray.raybatch import (RayBatch, morton_sort_rays,
-                                           unsort)
+from ntrace_tpu_torch.ray.raybatch import (DEAD_KEY, RayBatch,
+                                           morton_sort_key, morton_sort_rays,
+                                           sort_by_key, unsort)
 from ntrace_tpu_torch.render import renderer as port
 from ntrace_tpu_torch.render.renderer import Renderer, build_accel
 from ntrace_tpu_torch.utils import timing
@@ -92,6 +99,20 @@ def test_rng_bit_exact_against_jax(seed):
                                       want.view(np.int32))
 
 
+@pytest.mark.parametrize("seed", [-2 ** 31, -2 ** 31 + 1, -1, 0, 1,
+                                  2 ** 31 - 2, 2 ** 31 - 1])
+def test_key_words_equal_the_uploaded_key(seed):
+    words = rng.key_words(seed)
+    assert words == tuple(int(w) for w in timing.read(rng.prng_key(seed,
+                                                                   "cpu")))
+    assert all(0 <= w < 2 ** 32 for w in words)
+    bits = rng.random_bits32(rng.prng_key(seed, "cpu"), (5, 2))
+    assert torch.equal(rng.random_bits32(words, (5, 2), "cpu"), bits)
+    for bad in (-2 ** 31 - 1, 2 ** 31):
+        with pytest.raises(ValueError, match="int32 range"):
+            rng.key_words(bad)
+
+
 def test_cosine_hemisphere_matches_jax():
     rs = np.random.default_rng(5)
     n = _unit(rs, 300)
@@ -140,8 +161,20 @@ def _close_batches(g: RayBatch, j):
                                   np.asarray(j.slot_to_id))
 
 
-@pytest.mark.parametrize("direction_major", [True, False])
-def test_morton_sort_rays_identical_permutation(direction_major):
+def _sort_by_key(batch, lo, hi, direction_major):
+    """morton_sort_rays's key, then raybatch.sort_by_key."""
+    key = morton_sort_key(batch.orig, batch.dirn, lo, hi,
+                          direction_major=direction_major)
+    return sort_by_key(batch, torch.where(batch.tmax <= batch.tmin, DEAD_KEY,
+                                          key))
+
+
+@pytest.mark.parametrize("direction_major,sort", [
+    pytest.param(True, morton_sort_rays, id="True"),
+    pytest.param(False, morton_sort_rays, id="False"),
+    pytest.param(True, _sort_by_key, id="True-sort_by_key"),
+    pytest.param(False, _sort_by_key, id="False-sort_by_key")])
+def test_morton_sort_rays_identical_permutation(direction_major, sort):
     rs = np.random.default_rng(8)
     n = 3000
     orig = rs.uniform(-3, 7, size=(n, 3)).astype(np.float32)
@@ -154,7 +187,7 @@ def test_morton_sort_rays_identical_permutation(direction_major):
         JaxRayBatch(*(jnp.asarray(a) for a in (orig, dirn, tmin, tmax)),
                     jnp.arange(n, dtype=jnp.int32)),
         jnp.asarray(lo), jnp.asarray(hi), direction_major=direction_major)
-    got = morton_sort_rays(
+    got = sort(
         RayBatch(*(torch.from_numpy(a) for a in (orig, dirn, tmin, tmax))),
         torch.from_numpy(lo), torch.from_numpy(hi),
         direction_major=direction_major)
@@ -277,16 +310,25 @@ def test_render_secondary_matches_jax(conference, jax_frames, mode, engine):
         assert f"mrays_{p}" not in got.stats
 
 
-@pytest.mark.parametrize("mode", ["shadow", "ao", "diffuse"])
-def test_gen_secondary_matches_reference(conference, mode):
+@pytest.mark.parametrize("mode,misses", [
+    pytest.param("shadow", False, id="shadow"),
+    pytest.param("ao", False, id="ao"),
+    pytest.param("diffuse", False, id="diffuse"),
+    pytest.param("ao", True, id="ao-misses"),
+    pytest.param("diffuse", True, id="diffuse-misses")])
+def test_gen_secondary_matches_reference(conference, mode, misses):
     """The same primary hits give the reference's secondary batch: the same
-    permutation and dead rays, origins and directions within tolerance."""
+    permutation and dead rays, origins and directions within tolerance.
+    With `misses`, every seventh primary ray is made a miss (the conference
+    room is closed, so the frame has almost none of its own)."""
     scene, flat = conference
     cam = default_camera("conference")
     jr = JaxRenderer(scene, BENCH_BUILD, _cfg(mode, JAX_ENGINE), flat=flat)
     r = Renderer(scene, BENCH_BUILD, _cfg(mode, "packet"), flat=flat,
                  device="cpu")
     batch, tri, t = _primary(r, cam)
+    if misses:
+        tri, t = _plant_misses(tri, t)
     jb = JaxRayBatch(*(jnp.asarray(a.numpy()) for a in (
         batch.orig, batch.dirn, batch.tmin, batch.tmax, batch.slot_to_id)))
     want, want_any = jr.gen_secondary(cam, mode, jb, jnp.asarray(tri.numpy()),
@@ -297,7 +339,17 @@ def test_gen_secondary_matches_reference(conference, mode):
                                   np.asarray(want.slot_to_id))
     np.testing.assert_array_equal(got.tmax.numpy() > got.tmin.numpy(),
                                   np.asarray(want.tmax > want.tmin))
+    if misses:
+        dead = int((got.tmax <= got.tmin).sum())
+        assert dead == SAMPLES * int((tri < 0).sum()) > 0
     _close_batches(got, want)
+
+
+def _plant_misses(tri, t):
+    """The primary hits with every seventh ray made a miss."""
+    tri, t = tri.clone(), t.clone()
+    tri[::7], t[::7] = -1, float("nan")
+    return tri, t
 
 
 def _primary(r, cam):
@@ -336,3 +388,77 @@ def test_reference_batch_gives_reference_hits(conference, mode):
     else:
         np.testing.assert_array_equal(got, want)
         assert (want >= 0).mean() > 0.5   # the conference room is closed
+
+
+def _secondary_inputs(conference, mode):
+    """A CPU renderer of `mode`, its primary batch and hits with every
+    seventh primary ray made a miss, and secondary_rays' arguments after
+    the key words."""
+    scene, flat = conference
+    r = Renderer(scene, BENCH_BUILD, _cfg(mode, "packet"), flat=flat,
+                 device="cpu")
+    batch, tri, t = _primary(r, default_camera("conference"))
+    tri, t = _plant_misses(tri, t)
+    return r, (batch, tri, t, r.geom_normals, SAMPLES,
+               r.secondary_length(mode), r.eps, r.scene_lo, r.scene_hi,
+               mode != "ao")
+
+
+@pytest.mark.parametrize("mode", ["ao", "diffuse"])
+def test_secondary_rays_on_the_cpu_runs_the_plain_version(conference, mode):
+    """On the CPU secondary_rays is secondary_rays_ref, bit for bit, and
+    launches nothing: unsorted rays (no slot_to_id), the rays of missed
+    primary rays dead under DEAD_KEY. It refuses bits=, which only the
+    kernel fills. (That the plain version gives the reference's batch is
+    test_gen_secondary_matches_reference's.)"""
+    _, args = _secondary_inputs(conference, mode)
+    tri = args[1]
+    words = rng.key_words(2 ** 31 - 1)
+    launches = raygen.secondary_rays.launches
+    got, key = raygen.secondary_rays(words, *args)
+    want, want_key = raygen.secondary_rays_ref(words, *args)
+    assert raygen.secondary_rays.launches == launches
+    assert got.slot_to_id is None
+    for a, b in ((got.orig, want.orig), (got.dirn, want.dirn),
+                 (got.tmin, want.tmin), (got.tmax, want.tmax)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert key.dtype == torch.int32 and torch.equal(key, want_key)
+    dead = key == DEAD_KEY
+    assert torch.equal(dead, got.tmax <= got.tmin)
+    assert int(dead.sum()) == SAMPLES * int((tri < 0).sum()) > 0
+    bits = torch.empty((got.num_rays, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="bits="):
+        raygen.secondary_rays(words, *args, bits=bits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["ao", "diffuse"])
+def test_secondary_rays_kernel_on_cuda(conference, mode):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from chip_smoke import ulps
+
+    _, (batch, *rest) = _secondary_inputs(conference, mode)
+    dev = torch.device("cuda")
+    args = (RayBatch(batch.orig.to(dev), batch.dirn.to(dev),
+                     batch.tmin.to(dev), batch.tmax.to(dev)),
+            *(a.to(dev) if isinstance(a, torch.Tensor) else a for a in rest))
+    n = batch.num_rays * SAMPLES
+    for seed in (-2 ** 31, 0, 2 ** 31 - 1):
+        words = rng.key_words(seed)
+        bits = torch.empty((n, 2), dtype=torch.int32, device=dev)
+        launches = raygen.secondary_rays.launches
+        got, key = raygen.secondary_rays(words, *args, bits=bits)
+        torch.cuda.synchronize()
+        assert raygen.secondary_rays.launches == launches + 1
+        want, want_key = raygen.secondary_rays_ref(words, *args)
+        assert torch.equal(bits, rng.random_bits32(words, (n, 2), dev).to(
+            torch.int32))
+        for a, b in ((got.orig, want.orig), (got.tmin, want.tmin),
+                     (got.tmax, want.tmax)):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        du = ulps(got.dirn, want.dirn)
+        assert int(du.max()) <= 2
+        same = (du == 0).all(dim=1)
+        assert torch.equal(key[same], want_key[same])
+        assert (key == DEAD_KEY).sum() == (want_key == DEAD_KEY).sum() > 0
