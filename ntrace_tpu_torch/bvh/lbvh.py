@@ -62,6 +62,7 @@ from ntrace_tpu_torch.host import (BuildConfig, FlatBVH, PackedBVH, Scene,
                                    build_median_bvh, flatten_bvh, pack_bvh)
 from ntrace_tpu_torch.ops.morton import clz32, morton_codes_3d
 from ntrace_tpu_torch.ops.pscan import row_scan_i32
+from ntrace_tpu_torch.utils import timing
 
 MAX_TRIS = 1 << 24      # tri ids and links ride float32 values
 CLASSES = 31            # split levels 0..30
@@ -102,6 +103,13 @@ def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """jnp.sum(a * b, axis=1) over 3 lanes, summed left to right."""
     p = a * b
     return (p[:, 0] + p[:, 1]) + p[:, 2]
+
+
+def geometric_normals(tv: torch.Tensor) -> torch.Tensor:
+    """(n, 3) f32 unnormalised cross(v1 - v0, v2 - v0) of (n, 3, 3)
+    triangles, each product and difference its own op: bit-equal to
+    Scene.geometric_normals (numpy's cross)."""
+    return _cross(tv[:, 1] - tv[:, 0], tv[:, 2] - tv[:, 0])
 
 
 def device_woopify(tv: torch.Tensor) -> torch.Tensor:
@@ -631,41 +639,75 @@ def _emit_packed(n, ncap, tpr, npr, cidx, a_c, b_c, lleaf_c, rleaf_c,
                 order=order)
 
 
+def inputs_from(positions: torch.Tensor, indices: torch.Tensor) -> tuple:
+    """The build's inputs gathered on the tensors' device from vertex
+    positions (V, 3) f32 and triangle indices (n, 3) int32: (tri_lo (n, 3),
+    tri_hi (n, 3), tri_verts (n, 3, 3), scene_lo (3,), scene_hi (3,)), the
+    scene box over every vertex as Scene.bbox takes it."""
+    tv = positions.index_select(0, indices.reshape(-1)).reshape(-1, 3, 3)
+    return (tv.amin(dim=1), tv.amax(dim=1), tv, positions.amin(dim=0),
+            positions.amax(dim=0))
+
+
 def device_inputs(scene: Scene, device) -> tuple:
-    """The build's inputs on `device`, f32: (tri_lo (n, 3), tri_hi (n, 3),
-    tri_verts (n, 3, 3), scene_lo (3,), scene_hi (3,))."""
-    tv = scene.tri_verts()
-    lo, hi = scene.bbox()
-    return tuple(torch.from_numpy(np.ascontiguousarray(x, np.float32))
-                 .to(device)
-                 for x in (tv.min(axis=1), tv.max(axis=1), tv, lo, hi))
+    """`inputs_from` the scene's positions and indices, each uploaded once
+    to `device`."""
+    return inputs_from(*(torch.from_numpy(a).to(device)
+                         for a in (scene.positions, scene.indices)))
 
 
-def _build(args: tuple, **kw):
+def _build(args: tuple, carry=None, stage: str = "build", **kw):
     """lbvh_device_fast with the reference's compact_cap retry: a spine-
     shaped radix tree that overflows the cap is rebuilt with the always-
-    sufficient cap n. Returns (out, node_count), node_count read on the
-    host."""
-    out = lbvh_device_fast(*args, **kw)
-    nc = int(out["node_count"])
-    if nc > out["cap"]:
-        out = lbvh_device_fast(*args, compact_cap=args[0].shape[0], **kw)
-        nc = int(out["node_count"])
-    return out, nc
+    sufficient cap n. The one host read of each try is node_count, with the
+    float32 values that carry(out) gives, when given, in the same copy
+    (timing.read). Spans: ntrace.<stage>.lbvh around each try's build,
+    ntrace.<stage>.node_count around its read. Returns (out, node_count,
+    carried f32 array, retries 0 or 1)."""
+    def attempt(cap):
+        with timing.span(f"ntrace.{stage}.lbvh"):
+            out = lbvh_device_fast(*args, compact_cap=cap, **kw)
+            words = [out["node_count"].reshape(1)]
+            if carry is not None:
+                words.append(carry(out).reshape(-1).view(torch.int32))
+            words = torch.cat(words)
+        with timing.span(f"ntrace.{stage}.node_count"):
+            got = timing.read(words)
+        return out, int(got[0]), got[1:].view(np.float32)
+
+    out, nc, carried = attempt(None)
+    retries = int(nc > out["cap"])
+    if retries:
+        out, nc, carried = attempt(args[0].shape[0])
+    return out, nc, carried, retries
+
+
+def build_packed_read(args: tuple, max_leaf: int, carry=None, *,
+                      stage: str = "build", tris_per_row: int = 12,
+                      nodes_per_row: int = 1) -> tuple:
+    """The packed device build from `inputs_from`, with the compact_cap
+    retry, and what its one host read carried (`_build`): (PackedBVH, or
+    None when the tree has no internal node, carried f32 array, retries).
+    carry(pnodes, ptris) gives float32 values on the device."""
+    out, nc, carried, retries = _build(
+        args, None if carry is None else
+        (lambda o: carry(o["pnodes"], o["ptris"])), stage,
+        max_leaf=max_leaf, emit="packed", tpr=tris_per_row,
+        npr=nodes_per_row)
+    packed = None if nc == 0 else PackedBVH(
+        nodes8=out["pnodes"], tris12=out["ptris"], num_nodes=nc,
+        num_tris=args[0].shape[0], nodes_per_row=nodes_per_row,
+        tris_per_row=tris_per_row)
+    return packed, carried, retries
 
 
 def build_packed_from(args: tuple, max_leaf: int, *, tris_per_row: int = 12,
                       nodes_per_row: int = 1) -> PackedBVH | None:
-    """The packed device build from `device_inputs`, with the compact_cap
-    retry; its one host read is node_count. None when the tree has no
-    internal node (n <= max_leaf)."""
-    out, nc = _build(args, max_leaf=max_leaf, emit="packed",
-                     tpr=tris_per_row, npr=nodes_per_row)
-    if nc == 0:
-        return None
-    return PackedBVH(nodes8=out["pnodes"], tris12=out["ptris"],
-                     num_nodes=nc, num_tris=args[0].shape[0],
-                     nodes_per_row=nodes_per_row, tris_per_row=tris_per_row)
+    """The packed device build from `inputs_from` (build_packed_read);
+    its one host read is node_count. None when the tree has no internal
+    node (n <= max_leaf)."""
+    return build_packed_read(args, max_leaf, tris_per_row=tris_per_row,
+                             nodes_per_row=nodes_per_row)[0]
 
 
 def _check_size(scene: Scene):
@@ -687,7 +729,9 @@ def build_lbvh_packed(scene: Scene, cfg: BuildConfig = BuildConfig(), *,
     root at row 0. The one host read is node_count (for the cap check).
     Fewer than 2 triangles, or no internal node (n <= max_leaf), take the
     reference's median-builder route, packed on the host and moved to the
-    device. The per-frame rebuild of BASELINE config #4 is this function.
+    device. The per-frame rebuild of BASELINE config #4 takes the same
+    device build from moved vertices (render/renderer.py:
+    Renderer.update_positions).
     """
     _check_size(scene)
     n = scene.num_tris
@@ -717,8 +761,8 @@ def build_lbvh_flat(scene: Scene, cfg: BuildConfig = BuildConfig(), *,
     n = scene.num_tris
     if n < 2:
         return _median_flat(scene, cfg)
-    out, nc = _build(device_inputs(scene, device),
-                     max_leaf=cfg.max_leaf_size)
+    out, nc, _, _ = _build(device_inputs(scene, device),
+                           max_leaf=cfg.max_leaf_size)
     if nc == 0:   # n <= max_leaf: no internal node
         return _median_flat(scene, cfg)
     nodes = out["nodes"][:nc].cpu().numpy()

@@ -41,9 +41,11 @@ renderer's code defaults (the DENSE_* and V1_* constants), "auto" means
 the packet kernel alone, and seed_secondary and stage_secondary "auto"
 mean off. builder="lbvh" with engine "auto" or
 "packet" and no `flat` takes the packed-direct path on every device: the
-tables are built on the renderer's device (bvh/lbvh.py:build_lbvh_packed)
-and traced in place, and `self.flat` is None; with any other engine it
-takes the flat route
+tables are built on the renderer's device from the vertices and indices
+uploaded once (`_rebuild`: bvh/lbvh.py's inputs_from and
+build_packed_read) and traced in place, and `self.flat` is None;
+`update_positions` rebuilds them from moved vertices every frame (BASELINE
+config #4). With any other engine it takes the flat route
 (build_lbvh_flat, then the host pack), as the reference does.
 builder="hlbvh" builds its forest on the renderer's device and its top
 tree on the host (bvh/hlbvh.py:build_hlbvh_flat), and every engine packs
@@ -59,6 +61,7 @@ ROADMAP item that ports them.
 
 from __future__ import annotations
 
+import dataclasses
 import sys
 import time
 from dataclasses import dataclass, field
@@ -67,7 +70,9 @@ import numpy as np
 import torch
 
 from ntrace_tpu_torch.bvh.hlbvh import build_hlbvh_flat
-from ntrace_tpu_torch.bvh.lbvh import build_lbvh_flat, build_lbvh_packed
+from ntrace_tpu_torch.bvh.lbvh import (build_lbvh_flat, build_lbvh_packed,
+                                      build_packed_read, geometric_normals,
+                                      inputs_from)
 from ntrace_tpu_torch.host import (BuildConfig, Camera, FlatBVH, RenderConfig,
                                    Scene, build_median_bvh, build_sbvh,
                                    flatten_bvh, pack_bvh, pack_wide_bvh,
@@ -77,8 +82,8 @@ from ntrace_tpu_torch.ray import raygen, rng
 from ntrace_tpu_torch.ray.pixeltable import pixel_table
 from ntrace_tpu_torch.ray.raybatch import (RayBatch, morton_sort_rays,
                                            sort_by_key, unsort)
-from ntrace_tpu_torch.tables import (tables_from_device, tables_from_packed,
-                                     tables_from_wide)
+from ntrace_tpu_torch.tables import (table_top, tables_from_device,
+                                     tables_from_packed, tables_from_wide)
 from ntrace_tpu_torch.trace import binraster as br
 from ntrace_tpu_torch.trace import binraster_dense as bd
 from ntrace_tpu_torch.trace.packet import trace_packet
@@ -311,22 +316,25 @@ class Renderer:
         # on the device (the reference's path on its accelerator).
         self.timer = timing.StageTimer(self.device)
         self.frames = 0         # render() calls: the frame number of spans
+        self.updates = 0        # update_positions() calls
+        self.build_cfg = build_cfg
         direct = (flat is None and cfg.engine in ("auto", "packet")
                   and build_cfg.builder == "lbvh")
+        # The direct route's triangle indices, on the device: the topology
+        # update_positions rebuilds over (None on every other route).
+        self._indices = None
         # Set-up, not the hot path: the build is always timed.
-        with timing.tracing(), self.timer.stage("build"):
+        with timing.tracing():
             if direct:
                 self.flat = None
-                self.packed = build_lbvh_packed(
-                    scene, build_cfg, tris_per_row=12, nodes_per_row=1,
-                    device=self.device)
-                p = self.packed
-                self.tables = tables_from_device(
-                    p.nodes8, p.tris12, p.num_nodes, p.nodes_per_row,
-                    p.tris_per_row)
+                self._indices = torch.from_numpy(scene.indices).to(
+                    self.device)
+                self._rebuild(torch.from_numpy(scene.positions).to(
+                    self.device), self.timer, "build")
             else:
-                self.flat = flat if flat is not None else build_accel(
-                    scene, build_cfg, device=self.device)
+                with self.timer.stage("build"):
+                    self.flat = flat if flat is not None else build_accel(
+                        scene, build_cfg, device=self.device)
         if self.engine in TABLE_TRACERS:
             if not direct:
                 _, _, tpr, npr = pick_layout(self.flat)
@@ -357,20 +365,19 @@ class Renderer:
                 return tuple(torch.from_numpy(a).to(self.device)
                              for a in (rec.tri, rec.t, rec.u, rec.v))
         self._tracer = tracer
-        self.geom_normals = torch.from_numpy(
-            scene.geometric_normals()).to(self.device)
-        # Scene state of the secondary passes.
+        # Scene state of the secondary passes (the direct route set the
+        # normals and the box in its build).
         def dev(a, dtype=np.float32):
             return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(
                 self.device)
 
+        if not direct:
+            self.geom_normals = dev(scene.geometric_normals())
+            lo, hi = scene.bbox()
+            self._set_box(lo, hi, dev(lo), dev(hi))
         self.mat_diffuse = dev([m.diffuse for m in scene.materials])
         self.mat_emissive = dev([m.emissive for m in scene.materials])
         self.mat_ids = dev(scene.mat_ids, np.int64)
-        self._bbox = lo, hi = scene.bbox()
-        self.scene_lo, self.scene_hi = dev(lo), dev(hi)
-        self.scene_scale = float(np.linalg.norm(hi - lo))
-        self.eps = float(np.float32(self.scene_scale * 1e-4))
         if self.primary_engine is not None:
             if scene.num_tris > DENSE_MAX_TRIS:
                 self.primary_engine = None   # sorts and tables blow up
@@ -378,6 +385,97 @@ class Renderer:
                 self._br_verts = torch.from_numpy(
                     np.ascontiguousarray(scene.tri_verts(),
                                          dtype=np.float32)).to(self.device)
+
+    def _set_box(self, lo: np.ndarray, hi: np.ndarray, lo_dev: torch.Tensor,
+                 hi_dev: torch.Tensor):
+        """The scene box, on the host (lo, hi) and on the device, and what
+        derives from it: the diagonal and the self-intersection offset."""
+        self._bbox = lo, hi
+        self.scene_lo, self.scene_hi = lo_dev, hi_dev
+        self.scene_scale = float(np.linalg.norm(hi - lo))
+        self.eps = float(np.float32(self.scene_scale * 1e-4))
+
+    def _rebuild(self, positions: torch.Tensor, timer: timing.StageTimer,
+                 stage: str):
+        """The direct route's build from vertex positions on the device, as
+        the stage `stage` (spans ntrace.<stage>.inputs, .lbvh, .node_count):
+        the triangles gathered over the renderer's indices, their boxes,
+        the scene box and the geometric normals on the device, then the
+        LBVH and its packed tables. Its one host read is node_count, which
+        carries the scene box and the tables' check. A tree with no
+        internal node takes the median route on the host, as
+        build_lbvh_packed does. Counters <stage>_tris, <stage>_nodes and
+        <stage>_retries (the compact_cap retry)."""
+        tpr, npr = 12, 1
+        n = self._indices.shape[0]
+        with timer.stage(stage):
+            with timing.span(f"ntrace.{stage}.inputs"):
+                args = inputs_from(positions, self._indices)
+                gn = geometric_normals(args[2])
+                box = torch.cat(args[3:])
+            packed, retries = None, 0
+            if n >= 2:
+                packed, carried, retries = build_packed_read(
+                    args, self.build_cfg.max_leaf_size,
+                    lambda nodes, tris: torch.cat(
+                        [box, table_top(nodes, tris, npr, tpr)]),
+                    stage=stage, tris_per_row=tpr, nodes_per_row=npr)
+            if packed is None:
+                scene = dataclasses.replace(self.scene,
+                                            positions=timing.read(positions))
+                packed = build_lbvh_packed(scene, self.build_cfg,
+                                           tris_per_row=tpr,
+                                           nodes_per_row=npr,
+                                           device=self.device)
+                (lo, hi), top = scene.bbox(), None
+            else:
+                lo, hi = carried[0:3].copy(), carried[3:6].copy()
+                top = carried[6:8].tolist()
+            tables = tables_from_device(packed.nodes8, packed.tris12,
+                                        packed.num_nodes, npr, tpr, top=top)
+        self.packed, self.tables, self.geom_normals = packed, tables, gn
+        self._set_box(lo, hi, args[3], args[4])
+        timer.count(f"{stage}_tris", n)
+        timer.count(f"{stage}_nodes", packed.num_nodes)
+        timer.count(f"{stage}_retries", retries)
+
+    def update_positions(self, positions: torch.Tensor) -> dict:
+        """Move the scene's vertices and rebuild the tree on the device:
+        `positions` (V, 3) float32 on the renderer's device, V the scene's
+        vertex count; the topology (indices, materials) stays. One call
+        gathers the triangles, takes their boxes, the scene box and the
+        geometric normals, and builds the LBVH and its packed tables from
+        these positions alone; render() then traces them. Its one host
+        read is node_count, with the box riding on it; nothing on the host
+        grows with the scene. The direct LBVH route only (builder "lbvh",
+        engine "auto" or "packet", no `flat`); any other raises
+        NotImplementedError. `self.scene` keeps the positions it was built
+        with. Returns the call's stats: counters rebuild_tris,
+        rebuild_nodes, rebuild_retries, copies and copy_bytes, and while
+        tracing is on the stage times rebuild and host_rebuild."""
+        if self._indices is None:
+            raise NotImplementedError(
+                "update_positions rebuilds the direct LBVH route only "
+                "(builder 'lbvh', engine 'auto' or 'packet', no `flat` "
+                f"given); this renderer has builder "
+                f"{self.build_cfg.builder!r}, engine {self.cfg.engine!r} "
+                "(ROADMAP queue 6, item 45: update_positions beyond the "
+                "direct LBVH route)")
+        want = (self.scene.num_verts, 3)
+        if tuple(positions.shape) != want:
+            raise ValueError(f"positions: shape {tuple(positions.shape)}, "
+                             f"want {want}")
+        if positions.dtype != torch.float32:
+            raise TypeError(f"positions: dtype {positions.dtype}, want "
+                            "float32")
+        if positions.device != self.device:
+            raise ValueError(f"positions on {positions.device}, renderer "
+                             f"on {self.device}")
+        timer = timing.StageTimer(self.device)
+        self.updates += 1
+        with timer.frame("ntrace.update_positions", str(self.updates)):
+            self._rebuild(positions.contiguous(), timer, "rebuild")
+        return timer.ms()
 
     def prepare_primary(self, cam: dict, width: int, height: int) -> bool:
         """Arm the screen-space engine for (cam, W, H): one count pass picks
@@ -575,7 +673,7 @@ class Renderer:
     def _default_light(self, camera: Camera) -> np.ndarray:
         if any(self.cfg.light):
             return np.asarray(self.cfg.light, np.float32)
-        lo, hi = self._bbox   # scene.bbox(), taken once in __init__
+        lo, hi = self._bbox   # the box of the current positions
         # High-center light slightly toward the camera.
         c = (lo + hi) / 2
         return (np.array([c[0], hi[1] * 0.95, c[2]], np.float32) * 0.7

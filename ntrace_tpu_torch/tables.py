@@ -14,7 +14,7 @@ renderer.py:580-589).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import InitVar, dataclass
 from functools import cached_property
 
 import numpy as np
@@ -29,29 +29,41 @@ from ntrace_tpu_torch.host import NODE_LANES, TRI_LANES, PackedBVH
 FLOAT_ID_LIMIT = 2 ** 24
 
 
+def table_top(nodes8: torch.Tensor, tris12: torch.Tensor, nodes_per_row: int,
+              tris_per_row: int, num_nodes: int | None = None) -> torch.Tensor:
+    """(2,) float32 on the tables' device: the largest |child link or leaf
+    code| of the first num_nodes node records (all records when None) and
+    the largest triangle id, the values PackedTables checks."""
+    rec = nodes8[:, :nodes_per_row * NODE_LANES].reshape(-1, NODE_LANES)
+    enc = rec[:num_nodes, 12:14]
+    ids = tris12[:, :tris_per_row * TRI_LANES].reshape(-1, tris_per_row,
+                                                        TRI_LANES)
+    # A link is enc >= 0, a leaf's first row -enc - 1: |enc| must stay
+    # below the limit for either to be exact.
+    return torch.stack([
+        enc.abs().amax() if enc.numel() else enc.new_zeros(()),
+        ids[:, :, 9].amax() if ids.numel() else enc.new_zeros(())])
+
+
 @dataclass(frozen=True)
 class PackedTables:
     """The binary engines' tables on a device. Construction refuses tables
     whose float-coded integers reach FLOAT_ID_LIMIT (a child link, a leaf's
     first triangle row, a triangle id, or the node count), with a
-    ValueError that names the limit."""
+    ValueError that names the limit. `top`, where given, is table_top's
+    pair already read on the host; else construction reads it."""
     nodes8: torch.Tensor   # (NR, 128) float32, contiguous
     tris12: torch.Tensor   # (TR, 128) float32, contiguous
     nodes_per_row: int
     tris_per_row: int
     num_nodes: int
+    top: InitVar[tuple | None] = None
 
-    def __post_init__(self):
-        npr, tpr = self.nodes_per_row, self.tris_per_row
-        rec = self.nodes8[:, :npr * NODE_LANES].reshape(-1, NODE_LANES)
-        enc = rec[:self.num_nodes, 12:14]
-        ids = self.tris12[:, :tpr * TRI_LANES].reshape(-1, tpr, TRI_LANES)
-        # A link is enc >= 0, a leaf's first row -enc - 1: |enc| must stay
-        # below the limit for either to be exact.
-        top = torch.stack([
-            enc.abs().amax() if enc.numel() else enc.new_zeros(()),
-            ids[:, :, 9].amax() if ids.numel() else enc.new_zeros(())])
-        link_or_row, tid = top.tolist()
+    def __post_init__(self, top):
+        if top is None:
+            top = table_top(self.nodes8, self.tris12, self.nodes_per_row,
+                            self.tris_per_row, self.num_nodes).tolist()
+        link_or_row, tid = top
         for what, v in (("node count", self.num_nodes),
                         ("child link or leaf code", link_or_row),
                         ("triangle id", tid)):
@@ -130,9 +142,10 @@ def tables_from_packed(packed: PackedBVH, device) -> PackedTables:
 
 def tables_from_device(pnodes: torch.Tensor, ptris: torch.Tensor,
                        num_nodes: int, nodes_per_row: int,
-                       tris_per_row: int) -> PackedTables:
+                       tris_per_row: int, top=None) -> PackedTables:
     """Tables already on one device (the LBVH build's pnodes / ptris), used
-    in place: nothing is copied to the host."""
+    in place: nothing is copied to the host but the check's `top` where the
+    caller has not read it (PackedTables)."""
     _check_layout(nodes_per_row, tris_per_row)
     for t in (pnodes, ptris):
         _check_table(t)
@@ -142,7 +155,7 @@ def tables_from_device(pnodes: torch.Tensor, ptris: torch.Tensor,
     return PackedTables(nodes8=pnodes.contiguous(), tris12=ptris.contiguous(),
                         nodes_per_row=int(nodes_per_row),
                         tris_per_row=int(tris_per_row),
-                        num_nodes=int(num_nodes))
+                        num_nodes=int(num_nodes), top=top)
 
 
 # The wide tables' two limits, kept from the reference
