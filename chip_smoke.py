@@ -48,13 +48,16 @@ Phases, each printed as it completes:
   7. the device LBVH build (builder="lbvh", max_leaf_size=32): the row-scan
      kernel (csrc/row_scan.cu) bit-equal to row_scan_i32_ref on random
      (R, n) int32 at R in {1, 8, 31}, n in {1, 257, 8193, 297024}, both
-     ops and directions, and on the hairball build's two ANSV inputs
-     (31, 2,900,402); the conference build on the card bit-equal to the
+     ops and directions, on the hairball build's two ANSV inputs
+     (31, 2,900,402) and its kept neighbours (two (1, 2,900,402) scans,
+     bit-equal to torch.cummax / cummin); the conference build on the card
+     bit-equal to the
      same build on the CPU; structural checks of the hairball build; the
      LBVH frame (render() through the row-scan and packet kernels) against
      the golden and brute-force oracles and against phase 4's frame on
      every ray; times of the build at both sizes, of each row-scan launch
-     beside torch.cummax and the plain version, and of the frame's trace
+     (the (31, n) class scans and the (1, n) kept-neighbour scans) beside
+     torch.cummax and the plain version, and of the frame's trace
   8. the secondary modes on phase 4's renderer (engine packet): render()
      for shadow, ao (3,145,728 rays at samples=4), diffuse and path
      (bounces=2), each pass recorded; any-hit passes tri >= 0 against
@@ -858,8 +861,9 @@ def check_packed(p, n: int, tag: str):
 def phase_lbvh_builds(device, conf, hair_tris=HAIRBALL_TRIS):
     """Phase 7 checks of the build: the conference build on the card
     bit-equal to the same build on the CPU (through the plain scan), the
-    hairball build's two ANSV scans through kernel and plain version, and
-    the structure of the hairball build. Returns the inputs on the card
+    hairball build's two ANSV scans through kernel and plain version, its
+    kept neighbours through the kernel and torch's scan, and the structure
+    of the hairball build. Returns the inputs on the card
     of both scenes and the hairball scene."""
     ml = LBVH_CFG.max_leaf_size
     t0 = time.perf_counter()
@@ -895,6 +899,18 @@ def phase_lbvh_builds(device, conf, hair_tris=HAIRBALL_TRIS):
     log(f"[7] hairball ANSV scans {tuple(got[0].shape)}: forward cummax and "
         "reverse cummin bit-equal to row_scan_i32_ref")
     del got, want, D
+    kept = lbvh.lbvh_device_fast(*hair_dev, max_leaf=ml, emit="packed")["kept"]
+    got = lbvh.kept_neighbours(kept)
+    want = lbvh.kept_neighbours(kept, row_scan_i32_ref)
+    for name, a, b in zip(("previous", "next"), got, want):
+        if not torch.equal(a, b):
+            raise AssertionError(f"hairball {name} kept rows: kernel differs "
+                                 f"from torch's scan on "
+                                 f"{int((a != b).sum())} rows")
+    log(f"[7] hairball kept neighbours ({int(kept.sum())} of {kept.shape[0]} "
+        "rows kept): the row scan's (1, n) forward max and reverse min "
+        "bit-equal to torch.cummax / cummin")
+    del kept, got, want
     check_packed(lbvh.build_packed_from(hair_dev, ml), hair.num_tris,
                  "[7] hairball")
     return conf_dev, hair_dev, hair
@@ -923,7 +939,7 @@ def phase_lbvh_frame(r, batch):
     if rl.flat is not None or rl.tables.device.type != r.device.type:
         raise AssertionError("builder='lbvh' did not build its tables on "
                              "the card")
-    if counts["row_scan"] < 2 or counts["packet"] < 1:
+    if counts["row_scan"] < 4 or counts["packet"] < 1:
         raise AssertionError(f"the LBVH path skipped a kernel: {counts}")
     img = res.image
     if img.shape != (H, W, 3) or not np.isfinite(img).all() \
@@ -960,7 +976,9 @@ def phase_lbvh_timing(rl, batch, conf_dev, hair_dev, smi):
     """Phase 7 times, CUDA events, warm, medians of 10: the packed build at
     both sizes (with its node_count read), each row-scan launch on the
     build's real ANSV inputs beside torch.cummax and the plain version,
-    and the LBVH frame's trace_primary."""
+    the two (1, n) kept-neighbour scans on the build's own mask beside the
+    plain version (torch's one-block scan), and the LBVH frame's
+    trace_primary."""
     ml = LBVH_CFG.max_leaf_size
 
     def med(name, fn, iters=10, warmup=2):
@@ -1014,8 +1032,9 @@ def phase_lbvh_timing(rl, batch, conf_dev, hair_dev, smi):
         log(f"[7] {size} row scan bound {b:.4f} ms by {by} "
             f"({2 * nbytes(xmax) / 1e6:.1f} MB at 3.35 TB/s); the max scan "
             f"takes {t['max'] / b:.2f}x the bound")
-        out[size] = t
         del D, xmax, xmin
+        t["row"] = phase_kept_scans(size, args, ml, med, smi)
+        out[size] = t
     rays = (batch.orig, batch.dirn, batch.tmin, batch.tmax)
     out["trace"] = med("LBVH frame: Renderer.trace_primary",
                        lambda: rl.trace_primary(*rays))
@@ -1032,6 +1051,43 @@ def phase_lbvh_timing(rl, batch, conf_dev, hair_dev, smi):
         f"{b:.4f} ms by {by}")
     torch.cuda.synchronize()
     return out
+
+
+def phase_kept_scans(size, args, ml, med, smi):
+    """The build's two kept-neighbour scans, (1, n) int32 rows made from
+    its own mask: each through the kernel and through the plain version
+    (torch.cummax / cummin, one block a row), CUDA events around the
+    wrapper and the profiler's device time of the kernel's passes, beside
+    the bound (one read and one write of the row)."""
+    kept = lbvh.lbvh_device_fast(*args, max_leaf=ml, emit="packed")["kept"]
+    n = kept.shape[0]
+    iota = torch.arange(n, dtype=torch.int32, device=kept.device)
+    xmax = torch.where(kept, iota, -1).reshape(1, -1)
+    xmin = torch.where(kept, iota, n).reshape(1, -1)
+    t = {"bound": bound(2 * nbytes(xmax), xmax.numel())}
+    for key, x, op, rev in (("max", xmax, "max", False),
+                            ("min_rev", xmin, "min", True)):
+        what = f"{size} (1, {n}) {op}" + (" reverse" if rev else "")
+        t[key] = med(f"{what} row_scan_i32",
+                     lambda: row_scan_i32(x, op=op, reverse=rev))
+        t[f"plain_{key}"] = med(f"{what} row_scan_i32_ref",
+                                lambda: row_scan_i32_ref(x, op=op,
+                                                         reverse=rev))
+        reps = 10
+        dev = profile_once(f"[7] profile of {reps} {what} row_scan_i32 "
+                           "launches",
+                           lambda: [row_scan_i32(x, op=op, reverse=rev)
+                                    for _ in range(reps)], smi, top=4)
+        t[f"device_{key}"] = sum(
+            ms for k, ms, _ in dev if "row_tile" in k) / reps or None
+    b, by = t["bound"]
+    log(f"[7] {size} kept-neighbour scans (1, {n}): kernel max "
+        f"{t['max']:.4f} ms, min reverse {t['min_rev']:.4f} (device "
+        + ", ".join("not measured" if t[k] is None else f"{t[k]:.4f}"
+                    for k in ("device_max", "device_min_rev"))
+        + f"); plain {t['plain_max']:.4f} and {t['plain_min_rev']:.4f}; "
+        f"bound {b:.4f} ms by {by} ({2 * nbytes(xmax) / 1e6:.1f} MB)")
+    return t
 
 
 # -- phases 8-10: the secondary passes -------------------------------------
@@ -1730,7 +1786,7 @@ def phase_hairball_ao(device, hair, smi, parent, width=WIDTH,
     with recorded(rh) as passes, tracing():
         res = rh.render(camera)
     counts = launch_counts()
-    if rh.flat is not None or counts["row_scan"] < 2 \
+    if rh.flat is not None or counts["row_scan"] < 4 \
             or counts["packet"] != 2 or len(passes) != 2:
         raise AssertionError(f"hairball AO skipped a kernel: {counts}")
     check_raygen_launches("[10] hairball AO", "ao", counts)

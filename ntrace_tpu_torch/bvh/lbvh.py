@@ -14,11 +14,14 @@ reference's to the bit:
     go through `ops/pscan.py:row_scan_i32`, so the CUDA kernel
     csrc/row_scan.cu on a CUDA tensor and its plain version on the CPU;
   - pruning of subtrees with at most max_leaf triangles (and of duplicate-
-    code splits), the leaf runs, the sparse range-min table for the child
-    boxes, compaction to the kept nodes, the child-to-parent link scatter,
-    and either the packet kernel's tables (emit="packed": node records and
-    dense triangle slots, root at row 0, links as float values) or the
-    FlatBVH arrays (emit="flat": Woop rows with leaf-end sentinels).
+    code splits), the kept boundaries around each row (`kept_neighbours`:
+    a (1, n) forward cummax and reverse cummin through the same row scan,
+    4 launches a build in all), the leaf runs, the sparse range-min table
+    for the child boxes, compaction to the kept nodes, the child-to-parent
+    link scatter, and either the packet kernel's tables (emit="packed":
+    node records and dense triangle slots, root at row 0, links as float
+    values) or the FlatBVH arrays (emit="flat": Woop rows with leaf-end
+    sentinels).
 
 Where torch differs from lax, the port keeps the reference's result:
   - `clz` is ops/morton.py:clz32; the logical right shifts mask the
@@ -212,6 +215,23 @@ def _next_min(key: torch.Tensor) -> torch.Tensor:
     """Reverse inclusive cummin of an int32 row (lax.cummin reverse=True),
     through the row-scan kernel on a (1, n) view."""
     return row_scan_i32(key.reshape(1, -1), op="min", reverse=True)[0]
+
+
+def kept_neighbours(kept: torch.Tensor, scan=None):
+    """The kept boundaries around each row of a (n,) bool mask: pks[i] the
+    last kept row before i (-1 when there is none) and nks[i] the next kept
+    row after i (n when there is none), int32. A forward cummax and a
+    reverse cummin on (1, n) rows, through `scan` (row_scan_i32 when None,
+    or its plain version)."""
+    scan = scan or row_scan_i32
+    n = kept.shape[0]
+    iota = _i32(n, kept.device)
+    pk = scan(torch.where(kept, iota, -1).reshape(1, -1), op="max")[0]
+    nk = scan(torch.where(kept, iota, n).reshape(1, -1), op="min",
+              reverse=True)[0]
+    edge = dict(dtype=torch.int32, device=kept.device)
+    return (torch.cat([torch.full((1,), -1, **edge), pk[:-1]]),
+            torch.cat([nk[1:], torch.full((1,), n, **edge)]))
 
 
 def _next_boundary(boundary: torch.Tensor, iota: torch.Tensor):
@@ -468,12 +488,7 @@ def lbvh_device_fast(tri_lo, tri_hi, tri_verts, scene_lo, scene_hi,
     lcount = runs_incl[-1]
     dst = iota + runs_incl - 1          # woop row of sorted tri r
 
-    pk = torch.cummax(torch.where(kept, iota, -1), 0).values
-    nk = torch.cummin(torch.where(kept, iota, n).flip(0), 0).values.flip(0)
-    pks = torch.cat([torch.full((1,), -1, dtype=torch.int32, device=dev),
-                     pk[:-1]])
-    nks = torch.cat([nk[1:], torch.full((1,), n, dtype=torch.int32,
-                                        device=dev)])
+    pks, nks = kept_neighbours(kept)
     lleaf = pks <= a      # no kept boundary strictly inside (a, i)
     rleaf = nks >= b      # no kept boundary strictly inside (i, b)
 

@@ -78,6 +78,7 @@ from ntrace_tpu_torch.host import (BuildConfig, Camera, FlatBVH, RenderConfig,
                                    flatten_bvh, pack_bvh, pack_wide_bvh,
                                    trace_cpu_golden)
 from ntrace_tpu_torch.host import pick_layout as _pick_layout
+from ntrace_tpu_torch.ops.pscan import row_scan_i32
 from ntrace_tpu_torch.ray import raygen, rng
 from ntrace_tpu_torch.ray.pixeltable import pixel_table
 from ntrace_tpu_torch.ray.raybatch import (RayBatch, morton_sort_rays,
@@ -404,10 +405,13 @@ class Renderer:
         LBVH and its packed tables. Its one host read is node_count, which
         carries the scene box and the tables' check. A tree with no
         internal node takes the median route on the host, as
-        build_lbvh_packed does. Counters <stage>_tris, <stage>_nodes and
-        <stage>_retries (the compact_cap retry)."""
+        build_lbvh_packed does. Counters <stage>_tris, <stage>_nodes,
+        <stage>_retries (the compact_cap retry) and <stage>_scan_launches
+        (row-scan kernel launches: 4 a try on a CUDA device, 0 on the
+        CPU)."""
         tpr, npr = 12, 1
         n = self._indices.shape[0]
+        scans = row_scan_i32.launches
         with timer.stage(stage):
             with timing.span(f"ntrace.{stage}.inputs"):
                 args = inputs_from(positions, self._indices)
@@ -438,6 +442,7 @@ class Renderer:
         timer.count(f"{stage}_tris", n)
         timer.count(f"{stage}_nodes", packed.num_nodes)
         timer.count(f"{stage}_retries", retries)
+        timer.count(f"{stage}_scan_launches", row_scan_i32.launches - scans)
 
     def update_positions(self, positions: torch.Tensor) -> dict:
         """Move the scene's vertices and rebuild the tree on the device:
@@ -451,7 +456,8 @@ class Renderer:
         engine "auto" or "packet", no `flat`); any other raises
         NotImplementedError. `self.scene` keeps the positions it was built
         with. Returns the call's stats: counters rebuild_tris,
-        rebuild_nodes, rebuild_retries, copies and copy_bytes, and while
+        rebuild_nodes, rebuild_retries, rebuild_scan_launches, copies and
+        copy_bytes, and while
         tracing is on the stage times rebuild and host_rebuild."""
         if self._indices is None:
             raise NotImplementedError(

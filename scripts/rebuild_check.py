@@ -12,7 +12,10 @@ the cell `<config>.ao_rebuild`. For each pose k, with camera k:
     bit-equal;
   - `--pixels` pixels of the image, drawn from a fixed seed, against the
     benchmark's plain reference (brute force over the pose's triangles):
-    pixel_mismatch and pixel_gap_mean must be 0.
+    pixel_mismatch and pixel_gap_mean must be 0;
+  - the build's kept neighbours of the pose (bvh/lbvh.py:kept_neighbours)
+    through the row scan must be bit-equal to its plain version's,
+    torch.cummax / cummin (`kept_scans`).
 One JSON line a pose, with the rebuild's stats and times (update_positions
 alone and the fresh constructor, host clock, synchronised); the last line
 is {"ok": ...}. Exits 1 when a pose fails. A CPU device runs the same
@@ -38,7 +41,9 @@ import torch  # noqa: E402
 from benchmark.lib import checks, program, spec  # noqa: E402
 from benchmark.lib.cell import Cell  # noqa: E402
 from benchmark.traffic import rebuild_frame as kind  # noqa: E402
+from ntrace_tpu_torch.bvh import lbvh  # noqa: E402
 from ntrace_tpu_torch.host import Scene  # noqa: E402
+from ntrace_tpu_torch.ops.pscan import row_scan_i32_ref  # noqa: E402
 
 
 def synced(device, fn):
@@ -50,6 +55,16 @@ def synced(device, fn):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     return out, perf_counter() - t0
+
+
+def kept_scans_equal(positions, indices, max_leaf) -> bool:
+    """The pose's kept neighbours through the row scan, bit-equal to those
+    of the plain version (torch.cummax / cummin)."""
+    kept = lbvh.lbvh_device_fast(*lbvh.inputs_from(positions, indices),
+                                 max_leaf=max_leaf, emit="packed")["kept"]
+    got = lbvh.kept_neighbours(kept)
+    want = lbvh.kept_neighbours(kept, row_scan_i32_ref)
+    return all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def main(argv=None) -> int:
@@ -70,6 +85,7 @@ def main(argv=None) -> int:
     kind.build(cell)
     kind.traffic(cell)
     r, s = cell.renderer, cell.scene
+    indices = torch.from_numpy(s.indices).to(cell.device)
     n = len(cell.cameras)
     cell.images = [None] * n
     rows, ok = [], True
@@ -87,7 +103,9 @@ def main(argv=None) -> int:
             "tris12": torch.equal(r.tables.tris12, fresh.tables.tris12),
             "image": bool(np.array_equal(got.image, want.image)),
             "hit_tri": bool(np.array_equal(got.hit_tri, want.hit_tri)),
-            "hit_t": bool(np.array_equal(got.hit_t, want.hit_t))}
+            "hit_t": bool(np.array_equal(got.hit_t, want.hit_t)),
+            "kept_scans": kept_scans_equal(cell.buf, indices,
+                                           r.build_cfg.max_leaf_size)}
         del fresh
         cell.images = [None] * n
         cell.images[k] = got.image

@@ -210,6 +210,69 @@ def test_ansv_scans_through_either_scan():
     assert torch.equal(P, P2) and torch.equal(Q, Q2)
 
 
+def _kept_loop(kept):
+    """kept_neighbours by a plain loop: the last kept row before each row
+    (-1 when none) and the next kept row after it (n when none)."""
+    n = len(kept)
+    pks, nks = [0] * n, [0] * n
+    last = -1
+    for i in range(n):
+        pks[i] = last
+        if kept[i]:
+            last = i
+    nxt = n
+    for i in reversed(range(n)):
+        nks[i] = nxt
+        if kept[i]:
+            nxt = i
+    return pks, nks
+
+
+def _kept_mask(case, n):
+    kept = np.zeros(n, bool)
+    if case == "every":
+        kept[1:] = True
+    elif case == "row1":
+        kept[1] = True
+    elif case == "last":
+        kept[n - 1] = True
+    elif case.startswith("random"):
+        kept = np.random.default_rng(5).random(n) < float(case[6:])
+    return torch.from_numpy(kept)
+
+
+@pytest.mark.parametrize("case", ["none", "every", "row1", "last",
+                                  "random0.01", "random0.3"])
+def test_kept_neighbours_match_a_loop(case):
+    kept = _kept_mask(case, 1000)
+    pks, nks = lbvh.kept_neighbours(kept)
+    assert pks.dtype == nks.dtype == torch.int32
+    want = _kept_loop(kept.tolist())
+    assert (pks.tolist(), nks.tolist()) == want
+
+
+def test_kept_neighbour_scans_go_through_row_scan(monkeypatch):
+    """lbvh_device_fast's two 1-D scans are row_scan_i32 calls on (1, n)
+    rows, a forward max and a reverse min, and the build is bit-equal
+    with them recorded. The class scans do not show here: ansv's `scan`
+    default is bound when it is defined."""
+    args = _args(get_scene("conference@4000"))
+    kw = dict(max_leaf=32, emit="packed")
+    want = _port(args, **kw)
+    seen = []
+
+    def recorder(x, **k):
+        seen.append((tuple(x.shape), k["op"], k.get("reverse", False)))
+        return pscan.row_scan_i32_ref(x, **k)
+
+    monkeypatch.setattr(lbvh, "row_scan_i32", recorder)
+    got = _port(args, **kw)
+    n = args[0].shape[0]
+    assert seen == [((1, n), "max", False), ((1, n), "min", True)]
+    assert int(got["cap"]) == int(want["cap"])
+    assert_bit_equal(want, got, PACKED_KEYS)
+
+
 def test_compact_cap_retry():
     """max_leaf 1 keeps nearly every boundary, past the default cap of
     ~0.64 n: the first build overflows, and the wrappers rebuild with the
@@ -406,10 +469,35 @@ def test_lbvh_build_on_cuda_equals_cpu():
          for a in args]
     before = pscan.row_scan_i32.launches
     out = lbvh.lbvh_device_fast(*t, max_leaf=32, emit="packed")
-    assert pscan.row_scan_i32.launches == before + 2
+    assert pscan.row_scan_i32.launches == before + 4
     gpu = {k: v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
            for k, v in out.items()}
     assert_bit_equal(cpu, gpu, PACKED_KEYS)
+
+
+@pytest.mark.cuda
+def test_kept_neighbours_on_cuda_at_hairball_size():
+    """At the hairball's 2,900,402 rows the kernel's kept neighbours are
+    bit-equal to the plain version's (torch.cummax / cummin), on the
+    build's own mask and on random ones; a build launches the row scan 4
+    times."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    n = 2_900_402
+    masks = [_kept_mask(c, n).cuda() for c in ("none", "every", "row1",
+                                               "last", "random0.01",
+                                               "random0.3")]
+    t = lbvh.device_inputs(host.get_scene("hairball"), "cuda")
+    assert t[0].shape[0] == n
+    before = pscan.row_scan_i32.launches
+    out = lbvh.lbvh_device_fast(*t, max_leaf=32, emit="packed")
+    assert pscan.row_scan_i32.launches == before + 4
+    for kept in [out["kept"]] + masks:
+        before = pscan.row_scan_i32.launches
+        got = lbvh.kept_neighbours(kept)
+        assert pscan.row_scan_i32.launches == before + 2
+        want = lbvh.kept_neighbours(kept, pscan.row_scan_i32_ref)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_the_port_reads_no_ntrace_direct(monkeypatch):

@@ -41,7 +41,7 @@ CAMERA = program.camera(VIEW)
 # the next.
 POSES = (1, 6, 11, 1)
 REBUILD_KEYS = {"rebuild_tris", "rebuild_nodes", "rebuild_retries",
-                "copies", "copy_bytes"}
+                "rebuild_scan_launches", "copies", "copy_bytes"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -81,12 +81,14 @@ def fresh(hair):
 def test_rebuild_equals_a_fresh_build(hair, fresh, mode):
     scene, wind = hair
     r = Renderer(scene, LBVH, _cfg(mode), device="cpu")
+    assert r.timer.counts["build_scan_launches"] == 0
     nodes = []
     for k in POSES:
         st = r.update_positions(torch.from_numpy(wind.pose(k)))
         assert set(st) == REBUILD_KEYS
-        assert (st["rebuild_tris"], st["rebuild_retries"]) == (
-            scene.num_tris, 0)
+        # The CPU takes the row scan's plain version: no kernel launch.
+        assert (st["rebuild_tris"], st["rebuild_retries"],
+                st["rebuild_scan_launches"]) == (scene.num_tris, 0, 0)
         f = fresh[k, mode]
         assert st["rebuild_nodes"] == f.tables.num_nodes
         assert torch.equal(r.tables.nodes8, f.tables.nodes8)
@@ -186,6 +188,22 @@ def test_compact_cap_retry(hair):
         got, want = r.render(CAMERA), f.render(CAMERA)
         assert np.array_equal(got.hit_tri, want.hit_tri)
         assert np.array_equal(got.hit_t, want.hit_t)
+
+
+@pytest.mark.cuda
+def test_rebuild_counts_its_scan_launches_on_cuda(hair):
+    """On the card each try of the build launches the row scan 4 times:
+    the two class scans and the two kept-neighbour scans."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    scene, wind = hair
+    dev = torch.device("cuda", 0)
+    r = Renderer(scene, LBVH, _cfg("ao"), device=dev)
+    assert r.timer.counts["build_scan_launches"] == 4
+    for k in POSES:
+        st = r.update_positions(torch.from_numpy(wind.pose(k)).to(dev))
+        assert st["rebuild_retries"] == 0
+        assert st["rebuild_scan_launches"] == 4
 
 
 @pytest.fixture(scope="module")
