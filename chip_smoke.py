@@ -19,12 +19,9 @@ deferred-leaf and combined packet kernels.
 
 Phases, each printed as it completes:
   1. versions, card name and power limit (nvidia-smi)
-  2. build the CUDA kernels from ntrace_tpu_torch/csrc with nvcc, the
-     while-while kernels again with every step of their redesign taken
-     out (PARENT_SCHEDULE, the parent's schedule), and the packet kernel
-     and packet_ifif so too (PACKET_PARENT); ptxas's registers, stack
-     frame and spills of both builds' packet_ww and packet_pipe, and of
-     both builds' packet kernel and packet_ifif
+  2. build the CUDA kernels from ntrace_tpu_torch/csrc with nvcc; ptxas's
+     registers, stack frame and spills of packet_ww and packet_pipe, and
+     of the packet kernel and packet_ifif
   3. kernel against its torch twin on the card: a 5,000-triangle random
      soup, 65,536 random rays, tables packed as (tris_per_row,
      nodes_per_row) = (12, 1) and (4, 8), and a 500-triangle soup whose
@@ -77,10 +74,8 @@ Phases, each printed as it completes:
      each; all four modes rendered with engine packet_ww and packet_ifif,
      every pass on phase 8's rays, closest hits equal to the packet
      kernel's on tri/t/u/v on every ray, any hits on tri >= 0, images
-     bit-equal to phase 8's; ww, packet and ifif against their parent's
-     schedules on the primary, shadow, AO and diffuse batches (closest
-     hits bit-equal, any hits tri >= 0, the any-hit rays whose tri changed
-     counted); each kernel (packet too) bit-equal to its twin on a
+     bit-equal to phase 8's; each kernel (packet too) bit-equal to its
+     twin on a
      65,536-ray stride sample of every batch, with each twin's work a ray
      (the packet and ifif twins' culled items too) and the packet and
      ifif twins' slot tests against ww's (at most 1.05x on any hits, the
@@ -95,9 +90,8 @@ Phases, each printed as it completes:
      builder="lbvh", built on the card through the row-scan kernel, and
      render(mode="ao") through the packet kernel; 128 AO rays against
      brute_force_anyhit; the kernel bit-equal to its twin on a stride
-     sample of the live AO rays, whose work gives the bound; the any-hit
-     rays whose tri changed against PACKET_PARENT; the AO pass time
-     beside the bound; csrc/secondary_rays.cu on the frame's primary hits
+     sample of the live AO rays, whose work gives the bound; the AO pass
+     time beside the bound; csrc/secondary_rays.cu on the frame's primary hits
      as in phase 8
  11. the pipelined while-while and 8-wide packet kernels
      (csrc/packet_pipe.cu, csrc/packet_wide.cu): the phase-3 soup check for
@@ -107,21 +101,18 @@ Phases, each printed as it completes:
      closest hits equal to the packet kernel's on every ray (for
      packet_wide: but rays brute_force_mt decides for it), any hits on
      tri >= 0, images bit-equal (but one pixel per decided ray); pipe
-     against the parent's schedule as ww in phase 9; pipe bit-equal to
-     its twin on the 65,536-ray samples (with the share of node steps
-     whose early-issued record was the one taken), wide on a contiguous
-     slice of whole packets sized by its twin's time (both exact modes,
-     each mode's work logged); ww's and pipe's twins within 2% of the
-     packet twin's node visits and slot tests on the full primary frame;
-     times of packet, pipe and wide (both exact modes, one warp a packet
-     and a persistent-warps build of the same source, whose hits must be
-     equal) on the primary, shadow, AO and diffuse batches beside one
-     bound per batch over the five twins, packet's and pipe's beside
-     their twins' node visits and slot tests a ray; wide's registers and
-     shared memory from ptxas;
-     the hairball's wide tables refused (2**19 triangle rows); the count of
-     rays decided by brute force (0 expected: the slab test is
-     conservative)
+     bit-equal to its twin on the 65,536-ray samples (with the share of
+     node steps whose early-issued record was the one taken), wide on a
+     contiguous slice of whole packets sized by its twin's time (both
+     exact modes, each mode's work logged); ww's and pipe's twins within
+     2% of the packet twin's node visits and slot tests on the full
+     primary frame; times of packet, pipe and wide (both exact modes) on
+     the primary, shadow, AO and diffuse batches beside one bound per
+     batch over the five twins, packet's and pipe's beside their twins'
+     node visits and slot tests a ray; wide's registers and shared memory
+     from ptxas; the hairball's wide tables refused (2**19 triangle rows);
+     the count of rays decided by brute force (0 expected: the slab test
+     is conservative)
  12. the v1 engine (engine="binraster", csrc/binraster_trace.cu) and the
      visit-list kernel (dense_kernel="visits", csrc/dense_visits.cu) on
      phase 4's scene, BVH and camera: render() through each with its
@@ -190,15 +181,12 @@ builders and CPU oracles are the port's own copies (ntrace_tpu_torch.host).
 Run from the repository root: python3 chip_smoke.py
 """
 
-import ctypes
 import json
-import os
 import re
 import statistics
-import subprocess
 import sys
 import time
-from contextlib import contextmanager, nullcontext
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -213,7 +201,6 @@ from ntrace_tpu_torch.host import (BuildConfig, RenderConfig,
                                    golden_mismatches, make_random_soup,
                                    pack_bvh, pack_wide_bvh, trace_cpu_golden)
 from ntrace_tpu_torch.host.bvh.sbvh import sbvh_impl_tag
-from ntrace_tpu_torch.kernels import build as kbuild
 from ntrace_tpu_torch.kernels.build import build
 from ntrace_tpu_torch.ops.gather import (GatherTable, paged_gather_bytes,
                                          paged_gather_bytes_ref)
@@ -221,30 +208,24 @@ from ntrace_tpu_torch.ops.pscan import OPS, row_scan_i32, row_scan_i32_ref
 from ntrace_tpu_torch.ray import raygen, rng
 from ntrace_tpu_torch.ray.pixeltable import pixel_table
 from ntrace_tpu_torch.ray.raybatch import DEAD_KEY, RayBatch, sort_by_key
-from ntrace_tpu_torch.render.renderer import (Renderer, build_accel,
-                                              pick_layout)
+from ntrace_tpu_torch.render.renderer import Renderer, build_accel
 from ntrace_tpu_torch.tables import (WideTables, tables_from_packed,
                                      tables_from_wide)
 from ntrace_tpu_torch.trace import binraster as br
 from ntrace_tpu_torch.trace import binraster_dense as bd
-from ntrace_tpu_torch.trace import packet_batch
+from ntrace_tpu_torch.trace import packet_batch, registry
 from ntrace_tpu_torch.trace.packet import trace_packet, trace_packet_ref
-from ntrace_tpu_torch.trace.packet_bdl import (trace_packet_bdl,
-                                               trace_packet_bdl_ref)
-from ntrace_tpu_torch.trace.packet_bfs import (trace_packet_bfs,
-                                               trace_packet_bfs_ref)
-from ntrace_tpu_torch.trace.packet_dleaf import (trace_packet_dleaf,
-                                                 trace_packet_dleaf_ref)
-from ntrace_tpu_torch.trace.packet_ifif import (trace_packet_ifif,
-                                                trace_packet_ifif_ref)
+from ntrace_tpu_torch.trace.packet_bdl import trace_packet_bdl_ref
+from ntrace_tpu_torch.trace.packet_bfs import trace_packet_bfs_ref
+from ntrace_tpu_torch.trace.packet_dleaf import trace_packet_dleaf_ref
+from ntrace_tpu_torch.trace.packet_ifif import trace_packet_ifif_ref
 from ntrace_tpu_torch.trace.packet_common import (STACK_DEPTH, read_bytes,
                                                   work_with_reads)
 from ntrace_tpu_torch.trace.packet_pipe import (trace_packet_pipe,
                                                 trace_packet_pipe_ref)
 from ntrace_tpu_torch.trace.packet_wide import (WARP, trace_packet_wide,
                                                 trace_packet_wide_ref)
-from ntrace_tpu_torch.trace.packet_ww import (trace_packet_ww,
-                                              trace_packet_ww_ref)
+from ntrace_tpu_torch.trace.packet_ww import trace_packet_ww_ref
 from ntrace_tpu_torch.utils.timing import cuda_ms, tracing
 
 KERNEL_SOURCE = "ntrace_tpu_torch/csrc/packet_trace.cu"
@@ -262,15 +243,16 @@ SECONDARY_SOURCE = "ntrace_tpu_torch/csrc/secondary_rays.cu"
 # render() modes whose secondary rays come from csrc/secondary_rays.cu, one
 # launch a frame.
 KERNEL_RAYGEN_MODES = ("ao", "diffuse")
-# The traversal engines of the secondary slice: kernel wrapper, twin,
-# source and the TPU kernel each replaces.
+# The traversal engines of the secondary slice: kernel wrapper (the one the
+# registry binds, `TRACE`), twin, source and the TPU kernel each replaces.
+TRACE = registry.TABLE_TRACERS
 ENGINES = {
-    "packet": (trace_packet, trace_packet_ref, KERNEL_SOURCE,
+    "packet": (TRACE["packet"], trace_packet_ref, KERNEL_SOURCE,
                KERNEL_REPLACES),
-    "packet_ww": (trace_packet_ww, trace_packet_ww_ref,
+    "packet_ww": (TRACE["packet_ww"], trace_packet_ww_ref,
                   "ntrace_tpu_torch/csrc/packet_ww.cu",
                   "ntrace_tpu/trace/packet_ww.py:55"),
-    "packet_ifif": (trace_packet_ifif, trace_packet_ifif_ref,
+    "packet_ifif": (TRACE["packet_ifif"], trace_packet_ifif_ref,
                     "ntrace_tpu_torch/csrc/packet_ifif.cu",
                     "ntrace_tpu/trace/packet_ifif.py:54"),
 }
@@ -278,7 +260,7 @@ VARIANTS = ("packet_ww", "packet_ifif")
 # Phase 11's engines: the pipelined while-while on the packed tables, and
 # the 8-wide packet kernel on its own tables.
 NEW_ENGINES = {
-    "packet_pipe": (trace_packet_pipe, trace_packet_pipe_ref,
+    "packet_pipe": (TRACE["packet_pipe"], trace_packet_pipe_ref,
                     "ntrace_tpu_torch/csrc/packet_pipe.cu",
                     "ntrace_tpu/trace/packet_pipe.py:51"),
     "packet_wide": (trace_packet_wide, trace_packet_wide_ref,
@@ -288,13 +270,13 @@ NEW_ENGINES = {
 # Phase 13's engines: the node-batch, deferred-leaf and combined packet
 # kernels on the packed tables.
 BATCH_ENGINES = {
-    "packet_bfs": (trace_packet_bfs, trace_packet_bfs_ref,
+    "packet_bfs": (TRACE["packet_bfs"], trace_packet_bfs_ref,
                    "ntrace_tpu_torch/csrc/packet_bfs.cu",
                    "ntrace_tpu/trace/packet_bfs.py:52"),
-    "packet_dleaf": (trace_packet_dleaf, trace_packet_dleaf_ref,
+    "packet_dleaf": (TRACE["packet_dleaf"], trace_packet_dleaf_ref,
                      "ntrace_tpu_torch/csrc/packet_dleaf.cu",
                      "ntrace_tpu/trace/packet_dleaf.py:122"),
-    "packet_bdl": (trace_packet_bdl, trace_packet_bdl_ref,
+    "packet_bdl": (TRACE["packet_bdl"], trace_packet_bdl_ref,
                    "ntrace_tpu_torch/csrc/packet_bdl.cu",
                    "ntrace_tpu/trace/packet_bdl.py:72"),
 }
@@ -632,7 +614,7 @@ def screen_render(rv, key, tag):
     (main() checks that the kernel itself launched: on the CPU the plain
     version runs)."""
     if key in bd.KERNELS:
-        rv.dense_kernel = key
+        rv.screen.kernel_name = key
     for fn in SCREEN_KERNELS.values():
         fn.launches = 0
     trace_packet.launches = 0
@@ -642,7 +624,7 @@ def screen_render(rv, key, tag):
     counts = {k: fn.launches for k, fn in SCREEN_KERNELS.items()}
     counts.update(packet=trace_packet.launches,
                   prep_v5=bd.binraster_prep_dense5.calls)
-    if rv._br is None:
+    if not rv.screen.armed:
         raise AssertionError(f"{tag} render ({key}) did not arm the "
                              "screen-space engine")
     others = sum(v for k, v in counts.items()
@@ -687,12 +669,12 @@ def phase_dense(r, batch):
     order, _ = pixel_table(W, H)
     check_oracles("[6]", r.scene, r.flat, res, batch, order)
 
-    rd.dense_kernel = "walk"
+    rd.screen.kernel_name = "walk"
     if not rd.prepare_primary(ca, W, H):
         raise AssertionError("prepare_primary declined the conference frame")
     rd.freeze_primary_structure(ca)
-    c = rd._br
-    rows, r0, r1, g1, ok = c["frozen"]
+    c, ray_rows = rd.screen.sizes, rd.screen.ray_rows
+    rows, r0, r1, g1, ok = rd.screen.structure(ca)
     if not bool(ok):
         raise AssertionError("prep v5: ok is False on the conference frame")
     g = 0 if g1 is None else int(g1[0])
@@ -700,12 +682,12 @@ def phase_dense(r, batch):
     log(f"[6] structure: p_max {c['p_max']}, g2_max {c['g2_max']}, "
         f"global tiles {g}, {rows.shape[0] // bd.GPT} tiles "
         f"({rows.numel() * 4 / 1e6:.1f} MB), {c['nb']} bins of "
-        f"{c['ray_rows'] * 128} rays, {visits} (bin, tile) visits, "
+        f"{ray_rows * 128} rays, {visits} (bin, tile) visits, "
         f"{len(c['n_ks'])} prefix slices")
-    dirs, scalars = bd.dense_rays(batch.dirn, ca["pos"], batch.tmin[0],
-                                  batch.tmax[0], c["nb"], c["ray_rows"])
+    dirs, scalars = br.dense_rays(batch.dirn, ca["pos"], batch.tmin[0],
+                                  batch.tmax[0], c["nb"], ray_rows)
     ops = (rows, r0, r1, dirs, scalars, g1)
-    kw = dict(n_bins=c["nb"], ray_rows=c["ray_rows"])
+    kw = dict(n_bins=c["nb"], ray_rows=ray_rows)
     twin = bd.trace_dense_rows_ref(*ops, **kw)
     walk0 = bd.trace_dense_rows(*ops, ez_chunk=0, **kw)
     walk4 = bd.trace_dense_rows(*ops, ez_chunk=4, **kw)
@@ -738,7 +720,7 @@ def phase_dense(r, batch):
     launches = {"walk": walk_launches, "dma": dma_launches}
     # The bound of either kernel (ez_chunk 0 walks every visit): each
     # visit tests its bin's rays against the tile's triangles.
-    pairs = visits * c["ray_rows"] * 128 * bd.TPT
+    pairs = visits * ray_rows * 128 * bd.TPT
     bnd = bound(nbytes(*ops) + 16 * R, pairs * MT_OPS)
     log(f"[6] dense kernel work: {pairs} ray-triangle pair tests, "
         f"{pairs * MT_OPS:.4g} FP32 operations; bound {bnd[0]:.4f} ms by "
@@ -777,12 +759,12 @@ def phase_dense_timing(rd, ca, batch, ops, kw, smi):
 
     def prep():
         rd.prepare_primary(ca, W, H)
-        return rd._dense_prep(ca)
+        return rd.screen.prep(ca)
 
     ms["prep"] = med("prep: prepare_primary (count passes) + prep v5", prep)
     if not rd.prepare_primary(ca, W, H):
         raise AssertionError("prepare_primary declined the conference frame")
-    med("prep v5 alone (the structure build)", lambda: rd._dense_prep(ca))
+    med("prep v5 alone (the structure build)", lambda: rd.screen.prep(ca))
     full = med("frame with the prep: trace_primary",
                lambda: rd.trace_primary(*rays, cam=ca, canonical=True))
     log(f"[6] frame: {R / frozen / 1e3:.2f} Mrays/s with the structure "
@@ -1128,18 +1110,18 @@ def recorded(r):
     order render() traces them. The tracer is the renderer's own; this
     only records its inputs and outputs."""
     passes = []
-    base = r._tracer
+    base = r.tracer.trace
 
     def tracer(o, d, tn, tx, any_hit):
         out = base(o, d, tn, tx, any_hit)
         passes.append(((o, d, tn, tx), any_hit, out))
         return out
 
-    r._tracer = tracer
+    r.tracer.trace = tracer
     try:
         yield passes
     finally:
-        r._tracer = base
+        del r.tracer.trace
 
 
 def check_image(tag, img, width, height):
@@ -1323,158 +1305,16 @@ def same_rays(a, b) -> bool:
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-# -- the while-while kernels' parent schedule (phases 2, 9 and 11) ----------
+# -- ptxas of the shipped traversal kernels (phase 2) and phase 9's checks --
 
-WW_SOURCES = ("packet_ww.cu", "packet_pipe.cu")
 # packet_ww's and packet_pipe's twins count the packet twin's node visits
 # and slot tests on the full primary frame, within this share (phase 11).
 WW_WORK_RTOL = 0.02
-WW_ENTRIES = ("ntrace_packet_ww", "ntrace_packet_pipe")
 WW_KERNELS = "ww|pipe"
+PACKET_KERNELS = "trace|ifif"
 # The twins whose closest-hit pops cull (their work counts the culled
 # items where asked).
 CULLING = ("packet", "packet_ifif")
-# Text patches (old, new; each old text occurs once in its source) that
-# take a step of the while-while redesign out of csrc/packet_ww.cu and
-# csrc/packet_pipe.cu again, or put a step that was tried back in.
-# scripts/ww_ab.py times each; phase 2 builds the parent's schedule
-# (PARENT_SCHEDULE: every step out), whose any-hit triangles phases 9 and
-# 11 count the change against.
-def queue_capacity(cap: int) -> tuple:
-    """The leaf queue sized for `cap` runs."""
-    return (("    RunQueue<2> queue;\n", f"    RunQueue<{cap}> queue;\n"),)
-
-
-# Step 1 out: the node loop pauses at QCAP - 2 = 30 queued runs, in a
-# queue of QCAP = 32.
-PAUSE_AT_30 = queue_capacity(32) + (("item != kDone && queue.n == 0)",
-                                     "item != kDone && queue.n < 30)"),)
-# Step 3 out (pipe): the loads of child 0's, child 1's and the stack top's
-# records issued before the slab tests, the next record picked from them.
-THREE_RECORDS = (
-    ("""            // 1. issue the load of the likeliest next record
-            const int guess = !l0 && !l1 ? (first0 ? enc0 : enc1)
-                              : !l0      ? enc0
-                              : !l1      ? enc1
-                                         : top;
-            float pre[kNodeLanes];
-            if (guess != kDone) load_node(nodes, guess, npr, pre);
-""", """            // 1. issue the loads of every possible next record
-            float row_a[kNodeLanes], row_b[kNodeLanes], row_s[kNodeLanes];
-            if (enc0 >= 0) load_node(nodes, enc0, npr, row_a);
-            if (enc1 >= 0) load_node(nodes, enc1, npr, row_b);
-            if (top != kDone) load_node(nodes, top, npr, row_s);
-"""),
-    ("""            // 3. the next record: the one in flight, or a late load
-            if (next != kDone) {
-                if (next == guess) {
-#pragma unroll
-                    for (int k = 0; k < kNodeLanes; ++k) rec[k] = pre[k];
-                } else {
-                    load_node(nodes, next, npr, rec);
-                }
-            }
-""", """            // 3. the next carried record, from the loaded ones
-            if (next == enc0 && !l0) {
-#pragma unroll
-                for (int k = 0; k < kNodeLanes; ++k) rec[k] = row_a[k];
-            } else if (next == enc1 && !l1) {
-#pragma unroll
-                for (int k = 0; k < kNodeLanes; ++k) rec[k] = row_b[k];
-            } else if (next != kDone) {
-#pragma unroll
-                for (int k = 0; k < kNodeLanes; ++k) rec[k] = row_s[k];
-            }
-"""))
-# Tried (pipe): the leaf loop prefetches the next row into L1 before it
-# tests the current one.
-ROW_PREFETCH = (
-    ("using namespace ntrace;\n", """using namespace ntrace;
-
-// L1 prefetch of the used lanes of triangle row `row` (tpr * 40 bytes).
-__device__ __forceinline__ void prefetch_row(const float* tris, int row,
-                                             int tpr) {
-    const char* p = reinterpret_cast<const char*>(
-        tris + static_cast<size_t>(row) * kRowLanes);
-    const int bytes = tpr * kTriLanes * 4;
-    for (int b = 0; b < bytes; b += 128) {
-        asm volatile("prefetch.global.L1 [%0];" ::"l"(p + b));
-    }
-}
-"""),
-    ("""            test_row(tris, queue.front() >> 5, tpr, ray, hit);
-            queue.advance();
-""", """            const int entry = queue.front();
-            queue.advance();
-            if (queue.n > 0) prefetch_row(tris, queue.front() >> 5, tpr);
-            test_row(tris, entry >> 5, tpr, ray, hit);
-"""))
-# Every step out: the parent's schedule and fetches (pause at 30 runs;
-# pipe's three records and row prefetch).
-PARENT_SCHEDULE = {
-    "packet_ww.cu": PAUSE_AT_30,
-    "packet_pipe.cu": PAUSE_AT_30 + THREE_RECORDS + ROW_PREFETCH,
-}
-
-
-def patched_sources(name: str, patches: dict, csrc, out,
-                    sources=WW_SOURCES):
-    """Write a build's `sources` (WW_SOURCES by default) into out/<slug>/
-    (csrc's, each patched by patches.get(source)) with csrc's
-    trace_common.cuh; returns that directory."""
-    d = out / "".join(c if c.isalnum() else "_" for c in name)
-    d.mkdir(parents=True, exist_ok=True)
-    (d / "trace_common.cuh").write_text(
-        (csrc / "trace_common.cuh").read_text())
-    for src in sources:
-        text = (csrc / src).read_text()
-        for old, new in patches.get(src, ()):
-            if text.count(old) != 1:
-                raise AssertionError(f"{name} {src}: patch text occurs "
-                                     f"{text.count(old)} times, not once:\n"
-                                     f"{old}")
-            text = text.replace(old, new)
-        (d / src).write_text(text)
-    return d
-
-
-def build_patched(dirs: dict, sources, entries):
-    """One nvcc a source of every build in `dirs` (name -> directory from
-    patched_sources), all at once, with kernels/build.py's flags; one link a
-    build. Returns {name: library with `entries` bound}, nvcc's seconds and
-    {name: ptxas log}."""
-    t0 = time.perf_counter()
-    jobs = [(name, d / f"{src[:-3]}.o", d / src) for name, d in dirs.items()
-            for src in sources]
-    done = kbuild._run_all([[kbuild.nvcc(), *kbuild.NVCC_FLAGS, "-I",
-                             str(dirs[name]), "-c", "-o", str(o), str(s)]
-                            for name, o, s in jobs])
-    logs = {name: "" for name in dirs}
-    for (name, _, _), (rc, out) in zip(jobs, done):
-        logs[name] += out
-        if rc:
-            raise RuntimeError(f"nvcc failed on {name}:\n{out}")
-    paths = {name: d / f"libpatched_{os.getpid()}.so"
-             for name, d in dirs.items()}
-    done = kbuild._run_all([[kbuild.nvcc(), *kbuild.ARCH, "-shared", "-o",
-                             str(paths[name]),
-                             *(str(d / f"{src[:-3]}.o") for src in sources)]
-                            for name, d in dirs.items()])
-    if any(rc for rc, _ in done):
-        raise RuntimeError("link failed:\n" + "".join(o for _, o in done))
-    libs = {}
-    for name, path in paths.items():
-        lib = ctypes.CDLL(str(path))
-        for entry in entries:
-            fn = getattr(lib, entry)
-            fn.restype, fn.argtypes = kbuild.SIGNATURES[entry]
-        libs[name] = lib
-    return libs, time.perf_counter() - t0, logs
-
-
-def build_while_while(dirs: dict):
-    """build_patched of the while-while sources (WW_SOURCES, WW_ENTRIES)."""
-    return build_patched(dirs, WW_SOURCES, WW_ENTRIES)
 
 
 def ptxas_report(log: str, kernels: str) -> str:
@@ -1492,87 +1332,6 @@ def ptxas_report(log: str, kernels: str) -> str:
                    f"registers, {m.group(3)} B stack frame, spills "
                    f"{m.group(4)}/{m.group(5)} B")
     return "; ".join(out) or "not in this build's log (library reused)"
-
-
-def ww_ptxas(log: str) -> str:
-    """ptxas_report of packet_ww_kernel and packet_pipe_kernel."""
-    return ptxas_report(log, WW_KERNELS)
-
-
-def parent_schedule_library():
-    """Phase 2: the while-while kernels built with every step of the
-    redesign taken out (PARENT_SCHEDULE), into the ignored build
-    directory. Returns the library, nvcc's seconds and its ptxas log."""
-    d = patched_sources("parent schedule", PARENT_SCHEDULE, kbuild.CSRC_DIR,
-                        kbuild.BUILD_DIR / "ww_parent")
-    libs, secs, logs = build_while_while({"parent": d})
-    return libs["parent"], secs, logs["parent"]
-
-
-# -- the packet kernel's and packet_ifif's parent schedule (phases 2, 9, 10)
-
-PACKET_SOURCES = ("packet_trace.cu", "packet_ifif.cu")
-PACKET_ENTRIES = ("ntrace_packet_trace", "ntrace_packet_ifif")
-PACKET_KERNELS = "trace|ifif"
-# Text patches (old, new; each old text occurs once in its source) that
-# take a step of the redesign out of csrc/packet_trace.cu and
-# csrc/packet_ifif.cu again. scripts/packet_ab.py times each; phase 2
-# builds the parent's schedule (PACKET_PARENT: every step out), whose
-# any-hit triangles phases 9 and 10 count the change against.
-# Step 1 out: an any-hit ray tests its whole leaf (run) before it stops.
-ROW_STOP_OUT = (("if (kAnyHit && hit.id >= 0) break;", ""),)
-# Step 2 out: no entry distances, no cull on pop.
-CULL_OUT = (("constexpr bool kCullOnPop = !kAnyHit;",
-             "constexpr bool kCullOnPop = false;"),)
-# Step 4 out: triangle slots as ten scalar loads (test_row).
-VECTOR_OUT = (("test_row_vec(tris, row0 + k, tpr, ray, hit);",
-               "test_row(tris, row0 + k, tpr, ray, hit);"),)
-PACKET_PARENT = {
-    "packet_trace.cu": ROW_STOP_OUT + CULL_OUT + VECTOR_OUT,
-    "packet_ifif.cu": ROW_STOP_OUT + CULL_OUT + VECTOR_OUT,
-}
-
-
-def packet_parent_library():
-    """Phase 2: the packet kernel and packet_ifif built with every step of
-    their redesign taken out (PACKET_PARENT), into the ignored build
-    directory. Returns the library, nvcc's seconds and its ptxas log."""
-    d = patched_sources("packet parent", PACKET_PARENT, kbuild.CSRC_DIR,
-                        kbuild.BUILD_DIR / "packet_parent", PACKET_SOURCES)
-    libs, secs, logs = build_patched({"parent": d}, PACKET_SOURCES,
-                                     PACKET_ENTRIES)
-    return libs["parent"], secs, logs["parent"]
-
-
-def any_hit_against_parent(tag, tables, secondary, parent, engine,
-                           what="pause at 30 runs, every step out"):
-    """Phases 9 and 11: `engine` (packet_ww or packet_pipe against
-    PARENT_SCHEDULE; packet or packet_ifif against PACKET_PARENT, `what`
-    names it) against the parent's schedule built in `parent` on the full
-    primary, shadow, AO and diffuse batches: closest hits bit-equal, any
-    hits tri >= 0 equal; logs on how many any-hit rays the triangle
-    changed."""
-    kernel = ALL_ENGINES[engine][0]
-    batches = {"primary": secondary["shadow"][1]["primary"][:2]}
-    batches.update({m: secondary[m][1][m][:2]
-                    for m in ("shadow", "ao", "diffuse")})
-    changed = []
-    for bname, (rays, any_hit) in batches.items():
-        new = kernel(tables, *rays, any_hit=any_hit)
-        with kernel_library(parent):
-            old = kernel(tables, *rays, any_hit=any_hit)
-        label = f"{tag} {engine} {bname}: against the parent's schedule"
-        if not any_hit:
-            compare(new, old, label)
-            continue
-        if not torch.equal(new[0] >= 0, old[0] >= 0):
-            raise AssertionError(f"{label}: tri>=0 differs")
-        changed.append(f"{bname} {int((new[0] != old[0]).sum())} of "
-                       f"{rays[0].shape[0]}")
-    log(f"{tag} {engine} against the parent's schedule ({what}): "
-        "closest hits bit-equal on the primary and "
-        "diffuse batches, any hits tri>=0 equal; any-hit tri changed on "
-        + ", ".join(changed) + " rays")
 
 
 def phase_variant_renders(r, secondary):
@@ -1766,8 +1525,7 @@ def phase_variant_timing(tables, primary, secondary, works, smi):
     return bounds["primary"][:2], rows, full
 
 
-def phase_hairball_ao(device, hair, smi, parent, width=WIDTH,
-                      height=HEIGHT):
+def phase_hairball_ao(device, hair, smi, width=WIDTH, height=HEIGHT):
     """Phase 10, BASELINE config #4: the hairball at 2,900,402 tris,
     builder="lbvh" (max_leaf_size 32) with engine "auto", so the renderer
     builds the tables on the card through the row-scan kernel, and
@@ -1775,9 +1533,7 @@ def phase_hairball_ao(device, hair, smi, parent, width=WIDTH,
     to 0 before the renderer is made and read after the frame. HAIR_AO_RAYS
     stride-sampled AO rays against brute_force_anyhit; the kernel bit-equal
     to its twin on a SAMPLE_RAYS stride sample of the live AO rays, whose
-    work, scaled, gives the bound; the any-hit rays whose tri changed
-    against the parent's schedule (`parent`, PACKET_PARENT); the AO pass
-    time beside the bound."""
+    work, scaled, gives the bound; the AO pass time beside the bound."""
     camera = default_camera("hairball")
     reset_counts()
     rh = Renderer(hair, LBVH_CFG, RenderConfig(width=width, height=height,
@@ -1810,12 +1566,6 @@ def phase_hairball_ao(device, hair, smi, parent, width=WIDTH,
     compare(trace_packet(rh.tables, *sample, any_hit=True), tw,
             "[10] hairball AO sample vs twin")
     b, by, _ = batch_bound(rays, {"packet": (rh.tables, work, scale)})
-    new = trace_packet(rh.tables, *rays, any_hit=True)
-    with kernel_library(parent):
-        old = trace_packet(rh.tables, *rays, any_hit=True)
-    if not torch.equal(new[0] >= 0, old[0] >= 0):
-        raise AssertionError("[10] hairball AO: tri>=0 differs from the "
-                             "parent's schedule")
     t = cuda_ms(lambda: trace_packet(rh.tables, *rays, any_hit=True),
                 warmup=2, iters=10)
     ms = statistics.median(t)
@@ -1834,9 +1584,7 @@ def phase_hairball_ao(device, hair, smi, parent, width=WIDTH,
         f"bound {b:.4f} ms by {by} ({ms / b:.1f}x; the twin's work on a "
         f"{n}-ray stride sample, bit-equal to the kernel, tri included, "
         f"twin {twin_s:.1f} s: {work['node_visits'] / n:.2f} node visits, "
-        f"{work['tri_slot_tests'] / n:.2f} slot tests a ray); any-hit tri "
-        f"changed against the parent's schedule (every step out) on "
-        f"{int((new[0] != old[0]).sum())} of {R} rays, tri>=0 equal; "
+        f"{work['tri_slot_tests'] / n:.2f} slot tests a ray); "
         f"tri>=0 equal to brute_force_anyhit on "
         f"{len(sub)} (blocked {blocked.mean():.4f}); image mean "
         f"{res.image.mean():.4f}; stages "
@@ -1848,80 +1596,6 @@ def phase_hairball_ao(device, hair, smi, parent, width=WIDTH,
 
 WIDE_TWIN_S = 6.0     # twin seconds a wide slice may grow to, per batch
 WIDE_SLICE0 = 64 * WARP
-# csrc/packet_wide.cu made persistent, for phase 11's one-warp-a-packet
-# against persistent timing: as many warps as stay resident, each taking
-# the next packet from a global counter zeroed before the launch.
-PERSISTENT_PATCH = (
-    ("template <bool kAnyHit, bool kExact>\n__global__ void",
-     "__device__ int g_next_packet;\n\n"
-     "template <bool kAnyHit, bool kExact>\n__global__ void"),
-    ("""    const int pk = blockIdx.x * kWarps + w;
-    if (pk * kWarp >= n_rays) return;   // the whole warp is past the end
-    trace_one_packet<kAnyHit, kExact>(
-        s_warp[w], lane, pk, nodes, tris, orig, dirn, tmin, tmax, n_rays,
-        n_nodes, n_tri_rows, tpr, out_tri, out_t, out_u, out_v);
-""", """    for (;;) {
-        int pk = 0;
-        if (lane == 0) pk = atomicAdd(&g_next_packet, 1);
-        pk = __shfl_sync(kFull, pk, 0);
-        if (pk * kWarp >= n_rays) break;
-        trace_one_packet<kAnyHit, kExact>(
-            s_warp[w], lane, pk, nodes, tris, orig, dirn, tmin, tmax,
-            n_rays, n_nodes, n_tri_rows, tpr, out_tri, out_t, out_u, out_v);
-    }
-"""),
-    ("    const int grid = (n_rays + kBlock - 1) / kBlock;\n",
-     """    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBlock, 0);
-    const int blocks = (n_rays + kBlock - 1) / kBlock;
-    const int grid = blocks < sms * per_sm ? blocks : sms * per_sm;
-    void* next = nullptr;
-    cudaGetSymbolAddress(&next, g_next_packet);
-    cudaMemsetAsync(next, 0, sizeof(int), s);
-"""))
-
-
-def persistent_library():
-    """csrc/packet_wide.cu built again with PERSISTENT_PATCH (each text
-    must occur once), with kernels/build.py's flags, into the ignored build
-    directory; its ntrace_packet_wide bound as build.library() binds it.
-    Returns the library, nvcc's seconds and its ptxas report."""
-    src = (kbuild.CSRC_DIR / "packet_wide.cu").read_text()
-    for old, new in PERSISTENT_PATCH:
-        if src.count(old) != 1:
-            raise AssertionError(f"packet_wide.cu: {old!r} occurs "
-                                 f"{src.count(old)} times, not once")
-        src = src.replace(old, new)
-    out = kbuild.BUILD_DIR / "persistent"
-    out.mkdir(parents=True, exist_ok=True)
-    cu = out / "packet_wide_persistent.cu"
-    cu.write_text(src)
-    so = out / f"libpacket_wide_persistent.{os.getpid()}.so"
-    t0 = time.perf_counter()
-    done = subprocess.run([kbuild.nvcc(), *kbuild.NVCC_FLAGS, "-I",
-                           str(kbuild.CSRC_DIR), "-shared", "-o", str(so),
-                           str(cu)], capture_output=True, text=True,
-                          timeout=600)
-    if done.returncode:
-        raise RuntimeError(f"nvcc failed ({done.returncode}):\n"
-                           f"{done.stdout}{done.stderr}")
-    lib = ctypes.CDLL(str(so))
-    fn = lib.ntrace_packet_wide
-    fn.restype, fn.argtypes = kbuild.SIGNATURES["ntrace_packet_wide"]
-    return lib, time.perf_counter() - t0, done.stdout + done.stderr
-
-
-@contextmanager
-def kernel_library(lib):
-    """The wrappers launch from `lib` inside the block."""
-    saved = kbuild._lib
-    kbuild._lib = lib
-    try:
-        yield
-    finally:
-        kbuild._lib = saved
 
 
 def wide_ptxas(log: str) -> str:
@@ -2060,7 +1734,7 @@ def phase_new_renders(r, secondary, names=tuple(NEW_ENGINES),
                     # rays of this pass are traced again by the engine.
                     check_pass(ptag, r.scene, r.flat, rays, any_hit, hits,
                                cut)
-                    rays, hits = rrays, rv._tracer(*rrays, any_hit)
+                    rays, hits = rrays, rv.tracer.trace(*rrays, any_hit)
                     ptag += " (phase 8's rays, traced again)"
                 if any_hit:
                     if not torch.equal(hits[0] >= 0, rhits[0] >= 0):
@@ -2153,14 +1827,11 @@ def phase_wide_twins(wt, secondary, entries):
                 f"ray {work['tri_slot_tests'] / n:.2f} slot tests")
 
 
-def phase_new_timing(tables, wt, primary, secondary, entries, full, smi,
-                     persistent):
+def phase_new_timing(tables, wt, primary, secondary, entries, full, smi):
     """Phase 11 times, CUDA events, warm, medians of 10 calls: packet,
-    packet_pipe and packet_wide (exact False and True; each also from
-    `persistent`, the persistent-warps build, whose hits must equal the
-    kernel's on every ray; the two builds in turns, A B B A, medians of
-    20) on phase 5's primary frame and the shadow, AO and diffuse
-    batches, beside the batch's bound (batch_bound over the five twins'
+    packet_pipe and packet_wide (exact False and True) on phase 5's
+    primary frame and the shadow, AO and diffuse batches, beside the
+    batch's bound (batch_bound over the five twins'
     work: full counts on the primary frame, phase 9's for packet, ww and
     ifif; sampled elsewhere). Then the new kernels' twins on the primary
     frame. Returns the primary bound, the new kernels' rows for the
@@ -2203,19 +1874,13 @@ def phase_new_timing(tables, wt, primary, secondary, entries, full, smi,
                "diffuse": secondary["diffuse"][1]["diffuse"][:2]
                + (entries["diffuse"],)}
 
-    def wide(exact, lib=None):
-        def run(r, a):
-            with kernel_library(lib) if lib else nullcontext():
-                return trace_packet_wide(wt, *r, any_hit=a, exact=exact)
-        return run
+    def wide(exact):
+        return lambda r, a: trace_packet_wide(wt, *r, any_hit=a, exact=exact)
 
     runs = {"packet": lambda r, a: trace_packet(tables, *r, any_hit=a),
             "packet_pipe": lambda r, a: trace_packet_pipe(tables, *r,
                                                           any_hit=a),
-            "packet_wide": wide(False),
-            "packet_wide persistent": wide(False, persistent),
-            "packet_wide_exact": wide(True),
-            "packet_wide_exact persistent": wide(True, persistent)}
+            "packet_wide": wide(False), "packet_wide_exact": wide(True)}
     times, bounds = {}, {}
     for bname, (rays, any_hit, ent) in batches.items():
         R = rays[0].shape[0]
@@ -2224,23 +1889,8 @@ def phase_new_timing(tables, wt, primary, secondary, entries, full, smi,
             f"{'any' if any_hit else 'closest'} hit: bound {b:.4f} ms by "
             f"{by} (the least of the five twins' work, {least}'s; "
             + ("full count" if bname == "primary" else "sampled work") + ")")
-        for exact in (False, True):
-            mode = "packet_wide" + ("_exact" if exact else "")
-            compare(runs[mode + " persistent"](rays, any_hit),
-                    runs[mode](rays, any_hit),
-                    f"[11] {bname} batch: {mode}, persistent warps against "
-                    "one warp a packet")
-        # The two builds of each mode in turns (A, B, B, A), 10 calls a
-        # turn.
-        turns = ["packet", "packet_pipe"]
-        for mode in ("packet_wide", "packet_wide_exact"):
-            other = mode + " persistent"
-            turns += [mode, other, other, mode]
-        samples = {}
-        for name in turns:
-            samples.setdefault(name, []).extend(cuda_ms(
-                lambda: runs[name](rays, any_hit), warmup=1, iters=10))
-        for name, t in samples.items():
+        for name, run in runs.items():
+            t = cuda_ms(lambda: run(rays, any_hit), warmup=2, iters=10)
             ms = statistics.median(t)
             times[bname, name] = ms
             own = ("; " + per_ray(ent[name][1], ent[name][2], R)
@@ -2249,12 +1899,6 @@ def phase_new_timing(tables, wt, primary, secondary, entries, full, smi,
                 f"(min {min(t):.4f}, max {max(t):.4f}) = "
                 f"{R / ms / 1e3:.2f} Mrays/s, {ms / b:.1f}x the batch's "
                 f"bound{own}; on {smi}")
-        log(f"[11] {bname} batch: packet_wide one warp a packet / "
-            f"persistent warps: exact=False "
-            f"{times[bname, 'packet_wide']:.4f} / "
-            f"{times[bname, 'packet_wide persistent']:.4f} ms, exact=True "
-            f"{times[bname, 'packet_wide_exact']:.4f} / "
-            f"{times[bname, 'packet_wide_exact persistent']:.4f} ms")
     rows = {}
     for engine in NEW_ENGINES:
         twin = ALL_ENGINES[engine][1]
@@ -2363,8 +2007,8 @@ def phase_screen(r, rd, batch, walk_res, ops, kw, dense_bnd, smi):
         "to phase 6's walk frame")
 
     rv.freeze_primary_structure(ca)
-    c = rv._br
-    rows, r0, r1, g1, ok = c["frozen"]
+    c = rv.screen.sizes
+    rows, r0, r1, g1, ok = rv.screen.structure(ca)
     if not bool(ok):
         raise AssertionError("fast prep: ok is False on the conference frame")
     nb = c["nb"]
@@ -2375,7 +2019,7 @@ def phase_screen(r, rd, batch, walk_res, ops, kw, dense_bnd, smi):
     runs = {ez: br.trace_binraster_rows(*v1_ops, n_bins=nb, unroll=4,
                                         ez_chunk=ez) for ez in (0, 8)}
     drows, dr0, dr1, ddirs, dscalars, dg1 = ops
-    vt, vb = bd.build_visit_list(dr0, dr1, dg1, v_cap=rd._br["v_cap"],
+    vt, vb = bd.build_visit_list(dr0, dr1, dg1, v_cap=rd.screen.sizes["v_cap"],
                                  nb=kw["n_bins"])
     vis_args = (drows, vt, vb, ddirs, dscalars)
     vis_twin = bd.trace_dense_visits_ref(*vis_args, **kw)
@@ -2439,7 +2083,7 @@ def phase_screen(r, rd, batch, walk_res, ops, kw, dense_bnd, smi):
                          lambda: rv.trace_primary(*rays, cam=ca,
                                                   canonical=True)),
     }
-    rd.dense_kernel = "visits"
+    rd.screen.kernel_name = "visits"
     rd.freeze_primary_structure(ca)
     ms["visits_frozen"] = med("visits frame, structure frozen: "
                               "trace_primary", lambda: rd.trace_primary(
@@ -2453,7 +2097,7 @@ def phase_screen(r, rd, batch, walk_res, ops, kw, dense_bnd, smi):
     ms["visits_prep"] = med("visits frame with the prep: trace_primary",
                             lambda: rd.trace_primary(*rays, cam=ca,
                                                      canonical=True))
-    rd.dense_kernel = "walk"
+    rd.screen.kernel_name = "walk"
     log(f"[12] v1 kernel {ms['v1_ez8']:.4f} ms at early-z 8 = "
         f"{ms['v1_ez8'] / b8[0]:.1f}x its bound, {ms['v1_ez0']:.4f} ms "
         f"without = {ms['v1_ez0'] / b0[0]:.1f}x; visits kernel "
@@ -2497,7 +2141,9 @@ BATCH_SOUP = (
     ("packet_bdl", {"drain_min": 1}, (12, 1), 1000),
     ("packet_bdl", {"drain_min": 64}, (12, 1), 1000),
 )
-BATCH_PACKET = 8 * WARP   # the renderer's packet: 8 warps (batch_knobs)
+# The renderer's packet of the node-batch engines, in rays.
+BATCH_PACKET = WARP * registry.batch_knobs("packet_bfs",
+                                           RenderConfig())["rows"]
 BATCH_TWIN_S = 1.0        # twin seconds a phase-13 slice may grow to
 BATCH_SCHEDULES = {"packet_bfs": packet_batch.BFS,
                    "packet_dleaf": packet_batch.DLEAF,
@@ -3081,7 +2727,7 @@ def phase_fairy_timing(rh, passes, smi):
     out = hlbvh.forest_sweep(scene, HLBVH_CFG, dev)
     parts["splice"] = host_ms(lambda: hlbvh.splice_forest(scene, HLBVH_CFG,
                                                           out))
-    _, _, tpr, npr = pick_layout(rh.flat)
+    _, _, tpr, npr = registry.pick_layout(rh.flat)
     parts["pack"] = host_ms(lambda: tables_from_packed(pack_bvh(
         rh.flat, scene.tri_verts(), tris_per_row=tpr, nodes_per_row=npr),
         dev))
@@ -3142,14 +2788,9 @@ def main():
     ptxas = [ln.strip() for ln in b.log.splitlines()
              if "registers" in ln or "stack frame" in ln]
     log(f"[2] built {b.path.name} in {b.seconds:.1f} s; " + " | ".join(ptxas))
-    ww_parent, secs, plog = parent_schedule_library()
-    log(f"[2] while-while ptxas: {ww_ptxas(b.log)}; the parent's schedule "
-        f"(every step out, built in {secs:.1f} s): {ww_ptxas(plog)}")
-    packet_parent, secs, plog = packet_parent_library()
+    log(f"[2] while-while ptxas: {ptxas_report(b.log, WW_KERNELS)}")
     log(f"[2] packet and packet_ifif ptxas: "
-        f"{ptxas_report(b.log, PACKET_KERNELS)}; the parent's schedule (every "
-        f"step out, built in {secs:.1f} s): "
-        f"{ptxas_report(plog, PACKET_KERNELS)}")
+        f"{ptxas_report(b.log, PACKET_KERNELS)}")
 
     device = torch.device("cuda")
     phase_soup(device)
@@ -3177,17 +2818,11 @@ def main():
                                       smi)
     phase_soup_variants(device)
     variant_launches = phase_variant_renders(r, secondary)
-    any_hit_against_parent("[9]", r.tables, secondary, ww_parent,
-                           "packet_ww")
-    for engine in ("packet", "packet_ifif"):
-        any_hit_against_parent("[9]", r.tables, secondary, packet_parent,
-                               engine, "every step out")
     works = phase_variant_twins(r.tables, secondary)
     _, variant_rows, full_counts = phase_variant_timing(
         r.tables, (batch.orig, batch.dirn, batch.tmin, batch.tmax),
         secondary, works, smi)
-    phase_hairball_ao(device, hair, smi, packet_parent)
-    del packet_parent
+    phase_hairball_ao(device, hair, smi)
     mark("8-10")
 
     phase_soup_variants(device, ("packet_pipe",), "[11]")
@@ -3198,9 +2833,6 @@ def main():
     log(f"[11] rays decided by brute_force_mt over every packet_wide pass: "
         f"{decided}")
     wt = new_r["packet_wide"].tables
-    any_hit_against_parent("[11]", r.tables, secondary, ww_parent,
-                           "packet_pipe")
-    del ww_parent
     pipe = {"packet_pipe": NEW_ENGINES["packet_pipe"]}
     pipe_works = phase_variant_twins(r.tables, secondary, pipe, "[11]")
     entries = {b: {e: (r.tables, w, scale)
@@ -3208,12 +2840,10 @@ def main():
                for b, (scale, bw) in works.items()}
     phase_wide_twins(wt, secondary, entries)
     mark("11 slices")
-    persistent, secs, plog = persistent_library()
-    log(f"[11] packet_wide ptxas: {wide_ptxas(b.log)}; the persistent "
-        f"build {secs:.1f} s: {wide_ptxas(plog)}")
+    log(f"[11] packet_wide ptxas: {wide_ptxas(b.log)}")
     primary_bnd, new_rows, full_counts = phase_new_timing(
         r.tables, wt, (batch.orig, batch.dirn, batch.tmin, batch.tmax),
-        secondary, entries, full_counts, smi, persistent)
+        secondary, entries, full_counts, smi)
     del new_r
     phase_hairball_wide_refused(hair, device)
     mark("11")

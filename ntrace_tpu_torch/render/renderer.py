@@ -2,68 +2,32 @@
 
 Counterpart of ntrace_tpu/render/renderer.py: `build_accel` (165-197),
 `normal_color` (200-210), `shadow_mix` (213), `_trace_batched`
-(337-364), `_compact_trace` (367-401), the engine resolution of
-`Renderer.__init__` (404-440, 597-698) with the packed-direct LBVH path
-(404-433, 613-619) and the scene state (725-736), `trace_primary`
-(1136-1188, the seed_primary="off" path), `_cap` (1203-1208),
-`_unit_normals` (1212), `gen_secondary` (1221-1254), `render` (1256-1394)
-for the modes primary, shadow, ao, diffuse and path, `_default_light`
-(1396-1402), the plain-tracer branch of `_secondary_tracer` (1448-1492)
-and `_path_trace` (1494-1548); and the two screen-space primary engines:
-`prepare_primary` (924-1027, the v1 and dense branches), `_dense_prep`,
-`freeze_primary_structure`, `_trace_binraster_dense` (1029-1109),
-`_trace_binraster` (1111-1134), the routing of `trace_primary`
-(1172-1179) and `_binraster_contract_ok` (1190-1201).
+(337-364), `_compact_trace` (367-401), `Renderer.__init__` (404-440,
+597-698) with the packed-direct LBVH path (404-433, 613-619) and the scene
+state (725-736), `trace_primary` (1136-1188, the seed_primary="off" path),
+`_cap` (1203-1208), `_unit_normals` (1212), `gen_secondary` (1221-1254),
+`render` (1256-1394) for the modes primary, shadow, ao, diffuse and path,
+`_default_light` (1396-1402), the plain-tracer branch of
+`_secondary_tracer` (1448-1492, in `_trace_secondary`) and `_path_trace`
+(1494-1548).
 
-Engines. "auto", "wavefront" and "packet" trace through
-`trace/packet.py`; "packet_ww", "packet_ifif" and "packet_pipe" through
-`trace/packet_ww.py`, `trace/packet_ifif.py` and `trace/packet_pipe.py`
-(the registry's tesla_persistent_while_while and
-tesla_persistent_speculative_while_while, `trace/registry.py`); each runs
-its CUDA kernel on a CUDA device and its torch twin on the CPU, over one
-packed table on the device (no forest). "packet_wide" (the registry's
-tesla_persistent_packet) packs the flat tree into the 8-ary tables
-(`host.pack_wide_bvh`, 4 triangles a row, renderer.py:580-596) and traces
-them through `trace/packet_wide.py` with the conservative frustum test
-(exact=False); the reference's TPU knobs (packet rows, interleave, VMEM
-limit, light and stats outputs) have no counterpart. "packet_bfs",
-"packet_dleaf" and "packet_bdl" trace the packed tables (bfs and bdl
-packed at nodes_per_row=1) through `trace/packet_bfs.py`,
-`packet_dleaf.py` and `packet_bdl.py`, with the knobs of `batch_knobs`
-(packet rows, drain_min, qgroup, merge_sibs).
-"cpu_golden" runs the host golden tracer. engine="binraster_dense" arms
-the dense engine (`trace/binraster_dense.py`, kernel "walk", "dma" or
-"visits") and engine="binraster" the v1 engine (`trace/binraster.py`,
-32-pixel bins) for canonical primary frames; both keep the packet kernel
-for every other ray. The port reads no tuned.json (its entries were
-measured on a TPU): the screen-space engines' settings are the reference
-renderer's code defaults (the DENSE_* and V1_* constants), "auto" means
-the packet kernel alone, and seed_secondary and stage_secondary "auto"
-mean off. builder="lbvh" with engine "auto" or
-"packet" and no `flat` takes the packed-direct path on every device: the
-tables are built on the renderer's device from the vertices and indices
-uploaded once (`_rebuild`: bvh/lbvh.py's inputs_from and
-build_packed_read) and traced in place, and `self.flat` is None;
-`update_positions` rebuilds them from moved vertices every frame (BASELINE
-config #4). With any other engine it takes the flat route
-(build_lbvh_flat, then the host pack), as the reference does.
-builder="hlbvh" builds its forest on the renderer's device and its top
-tree on the host (bvh/hlbvh.py:build_hlbvh_flat), and every engine packs
-that FlatBVH on the host: the reference's packed-direct path is for lbvh
-only (ntrace_tpu/render/renderer.py:417-420). Secondary
-rays draw their random numbers from `ray/rng.py`, bit-equal to the
-reference's jax.random; AO and diffuse rays, with their sort key, come
-from one launch of csrc/secondary_rays.cu on a CUDA device
-(`raygen.secondary_rays`), and only path mode uploads a key. Other modes,
-engines, builders and options raise NotImplementedError and name the
-ROADMAP item that ports them.
+The renderer runs frames; the engines live in trace/. The constructor
+asks `trace/registry.py` once for the BVH engine of cfg.engine (tables and
+trace call: `Renderer.tracer`) and for the screen-space engine of
+"binraster" or "binraster_dense" (`Renderer.screen`), which serves
+canonical primary frames once prepare_primary arms it. builder="lbvh"
+with engine "auto" or "packet" and no `flat` builds the tables on the
+renderer's device (`_rebuild`) and traces them in place (`self.flat` is
+None; `update_positions` rebuilds them from moved vertices); every other
+route builds a FlatBVH (`build_accel`) that the engine packs on the host.
+The port reads no tuned.json: "auto" means the packet kernel alone. What
+is not ported raises NotImplementedError naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import sys
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -75,70 +39,17 @@ from ntrace_tpu_torch.bvh.lbvh import (build_lbvh_flat, build_lbvh_packed,
                                       inputs_from)
 from ntrace_tpu_torch.host import (BuildConfig, Camera, FlatBVH, RenderConfig,
                                    Scene, build_median_bvh, build_sbvh,
-                                   flatten_bvh, pack_bvh, pack_wide_bvh,
-                                   trace_cpu_golden)
-from ntrace_tpu_torch.host import pick_layout as _pick_layout
+                                   flatten_bvh)
 from ntrace_tpu_torch.ops.pscan import row_scan_i32
 from ntrace_tpu_torch.ray import raygen, rng
 from ntrace_tpu_torch.ray.pixeltable import pixel_table
 from ntrace_tpu_torch.ray.raybatch import (RayBatch, morton_sort_rays,
                                            sort_by_key, unsort)
-from ntrace_tpu_torch.tables import (table_top, tables_from_device,
-                                     tables_from_packed, tables_from_wide)
-from ntrace_tpu_torch.trace import binraster as br
-from ntrace_tpu_torch.trace import binraster_dense as bd
-from ntrace_tpu_torch.trace.packet import trace_packet
-from ntrace_tpu_torch.trace.packet_bdl import trace_packet_bdl
-from ntrace_tpu_torch.trace.packet_bfs import trace_packet_bfs
-from ntrace_tpu_torch.trace.packet_dleaf import trace_packet_dleaf
-from ntrace_tpu_torch.trace.packet_ifif import trace_packet_ifif
-from ntrace_tpu_torch.trace.packet_pipe import trace_packet_pipe
-from ntrace_tpu_torch.trace.packet_wide import trace_packet_wide
-from ntrace_tpu_torch.trace.packet_ww import trace_packet_ww
+from ntrace_tpu_torch.tables import table_top, tables_from_device
+from ntrace_tpu_torch.trace import registry
 from ntrace_tpu_torch.utils import timing
 
-PACKET_ENGINES = ("auto", "wavefront", "packet")
-# Engines that trace the packed tables, by the name the renderer keeps.
-TABLE_TRACERS = {"packet": trace_packet, "packet_ww": trace_packet_ww,
-                 "packet_ifif": trace_packet_ifif,
-                 "packet_pipe": trace_packet_pipe,
-                 "packet_bfs": trace_packet_bfs,
-                 "packet_dleaf": trace_packet_dleaf,
-                 "packet_bdl": trace_packet_bdl}
-# The node-batch engines load one node record a row (the reference renderer
-# packs them at nodes_per_row=1, renderer.py:622-626).
-ONE_NODE_A_ROW = ("packet_bfs", "packet_bdl")
-# The 8-wide packet engine traces its own tables (host.pack_wide_bvh at 4
-# triangles a row, as the reference renderer packs them), with the
-# conservative frustum test.
-WIDE_TRIS_PER_ROW = 4
-# The reference's other engines, and the ROADMAP item that ports each.
-UNPORTED_ENGINES = {
-    "stack": "queue 1, item 2: the stack2 engine",
-    "stack2": "queue 1, item 2: the stack2 engine",
-    "bvh8": "queue 1, item 10: other engines",
-    "kdtree": "queue 1, item 10: other engines",
-}
 MODES = ("primary", "shadow", "ao", "diffuse", "path")
-# The dense engine's settings: the reference renderer's code defaults for
-# what it reads from tuned.json (br2_tile, br2_kcap, br2_ez,
-# br2_max_pairs). The prep is always v5.
-DENSE_TILE = 16              # bin edge in pixels
-DENSE_K_CAP = 64             # a triangle over more bins: the global tier
-DENSE_EZ_CHUNK = 0           # early-z off
-DENSE_MAX_PAIRS = 2_000_000  # pair budget; above it the BVH path serves
-# The v1 engine's settings: the reference renderer's code defaults for
-# what it reads from tuned.json (br_k, br_k2, br_unroll, br_ez); its bins
-# are 32 pixels, the kernel's 1,024 rays.
-V1_K_SLOTS = 8               # slots per triangle in the first tier
-V1_K2_SLOTS = 64             # slots per triangle in the mid tier
-V1_UNROLL = 4                # rows staged at once without early-z
-V1_EZ_CHUNK = 8              # early-z after every 8 rows
-# Scenes above this many triangles never arm a screen-space engine (the
-# reference's NTRACE_BINRASTER_MAX_TRIS default): their sorts and tables
-# scale with them.
-DENSE_MAX_TRIS = 3_000_000
-SCREEN_ENGINES = ("binraster", "binraster_dense")
 
 
 @dataclass
@@ -147,27 +58,6 @@ class RenderResult:
     hit_tri: np.ndarray      # (H*W,) int32 primary hits (pixel order)
     hit_t: np.ndarray        # (H*W,) float32
     stats: dict = field(default_factory=dict)
-
-
-def batch_knobs(engine: str, cfg: RenderConfig) -> dict:
-    """The node-batch and deferred-leaf engines' knobs, as the reference's
-    `_packet_family_tracer` (renderer.py:90-139) passes them: packet rows
-    from cfg.packet_rows, clamped as there (bfs at least 8, dleaf 8 to 32,
-    bdl 8 to 64) and then to 32, the port's most warps a packet (a ray row
-    is a warp here, a block holds 1,024 threads); drain_min 0 (one per
-    queue); bdl's cfg.merge_sibs and cfg.qgroup, qgroup 1 where it does not
-    divide the rows. Empty for every other engine."""
-    rows = max(cfg.packet_rows, 8)
-    if engine == "packet_bfs":
-        return {"rows": min(rows, 32)}
-    if engine == "packet_dleaf":
-        return {"rows": min(rows, 32), "drain_min": 0}
-    if engine == "packet_bdl":
-        rows = min(rows, 64, 32)
-        qgroup = cfg.qgroup if rows % cfg.qgroup == 0 else 1
-        return {"rows": rows, "drain_min": 0, "qgroup": qgroup,
-                "merge_sibs": bool(cfg.merge_sibs)}
-    return {}
 
 
 def build_accel(scene: Scene, cfg: BuildConfig = BuildConfig(), *,
@@ -188,16 +78,6 @@ def build_accel(scene: Scene, cfg: BuildConfig = BuildConfig(), *,
             "builder 'kdtree' is not ported yet (ROADMAP queue 1, item 10: "
             "other engines)")
     raise ValueError(f"unknown builder {cfg.builder!r}")
-
-
-def pick_layout(flat: FlatBVH):
-    """(n_refs, avg_leaf, tris_per_row, nodes_per_row) of a FlatBVH, as the
-    reference renderer's `_layout_of` picks them."""
-    n_refs = int((flat.tri_index >= 0).sum())
-    enc = np.ascontiguousarray(flat.nodes[:, 12:14]).view(np.int32)
-    avg_leaf = n_refs / max(int((enc < 0).sum()), 1)
-    tpr, npr = _pick_layout(flat.nodes.shape[0], n_refs, avg_leaf=avg_leaf)
-    return n_refs, avg_leaf, tpr, npr
 
 
 def normal_color(geom_normals: torch.Tensor, hit_tri: torch.Tensor):
@@ -286,86 +166,37 @@ class Renderer:
         self.scene = scene
         self.cfg = cfg
         self.device = torch.device(device)
-        self.dense_kernel = dense_kernel
         if cfg.seed_primary != "off":
             raise NotImplementedError(
                 f"seed_primary={cfg.seed_primary!r} is not ported yet "
                 "(ROADMAP queue 1, item 6: the seeded primary trace)")
-        # The screen-space engine serves canonical primary rays only; the
-        # main engine, the packet kernel, serves everything else.
-        self.primary_engine = None
-        self._br = None                   # armed by prepare_primary()
-        engine = cfg.engine
-        if engine in SCREEN_ENGINES:
-            if dense_kernel not in bd.KERNELS:
-                raise ValueError(f"dense_kernel must be one of "
-                                 f"{bd.KERNELS}, not {dense_kernel!r}")
-            self.primary_engine = engine
-            engine = "auto"
-        if engine in PACKET_ENGINES:
-            self.engine = "packet"
-        elif engine in TABLE_TRACERS or engine in ("packet_wide",
-                                                    "cpu_golden"):
-            self.engine = engine
-        elif engine in UNPORTED_ENGINES:
-            raise NotImplementedError(
-                f"engine {engine!r} is not ported yet (ROADMAP "
-                f"{UNPORTED_ENGINES[engine]})")
-        else:
-            raise ValueError(f"unknown engine {engine!r}")
-        # Packed-direct: builder="lbvh" builds the packet kernel's tables
-        # on the device (the reference's path on its accelerator).
+        self.engine = registry.engine_name(cfg.engine)
         self.timer = timing.StageTimer(self.device)
         self.frames = 0         # render() calls: the frame number of spans
         self.updates = 0        # update_positions() calls
         self.build_cfg = build_cfg
+        # Packed-direct: builder="lbvh" builds the packet kernel's tables
+        # on the device (the reference's path on its accelerator).
         direct = (flat is None and cfg.engine in ("auto", "packet")
                   and build_cfg.builder == "lbvh")
         # The direct route's triangle indices, on the device: the topology
         # update_positions rebuilds over (None on every other route).
         self._indices = None
+        built = None
         # Set-up, not the hot path: the build is always timed.
         with timing.tracing():
             if direct:
                 self.flat = None
                 self._indices = torch.from_numpy(scene.indices).to(
                     self.device)
-                self._rebuild(torch.from_numpy(scene.positions).to(
+                built = self._rebuild(torch.from_numpy(scene.positions).to(
                     self.device), self.timer, "build")
             else:
                 with self.timer.stage("build"):
                     self.flat = flat if flat is not None else build_accel(
                         scene, build_cfg, device=self.device)
-        if self.engine in TABLE_TRACERS:
-            if not direct:
-                _, _, tpr, npr = pick_layout(self.flat)
-                if self.engine in ONE_NODE_A_ROW:
-                    npr = 1
-                self.packed = pack_bvh(self.flat, scene.tri_verts(),
-                                       tris_per_row=tpr, nodes_per_row=npr)
-                self.tables = tables_from_packed(self.packed, self.device)
-            trace = TABLE_TRACERS[self.engine]
-            knobs = batch_knobs(self.engine, cfg)
-
-            def tracer(o, d, tn, tx, any_hit):
-                return trace(self.tables, o, d, tn, tx, any_hit=any_hit,
-                             **knobs)
-        elif self.engine == "packet_wide":
-            self.packed = pack_wide_bvh(self.flat, scene.tri_verts(),
-                                        tris_per_row=WIDE_TRIS_PER_ROW)
-            self.tables = tables_from_wide(self.packed, self.device)
-
-            def tracer(o, d, tn, tx, any_hit):
-                return trace_packet_wide(self.tables, o, d, tn, tx,
-                                         any_hit=any_hit, exact=False)
-        else:
-            def tracer(o, d, tn, tx, any_hit):
-                rec = trace_cpu_golden(
-                    self.flat, o.cpu().numpy(), d.cpu().numpy(),
-                    tn.cpu().numpy(), tx.cpu().numpy(), any_hit=any_hit)
-                return tuple(torch.from_numpy(a).to(self.device)
-                             for a in (rec.tri, rec.t, rec.u, rec.v))
-        self._tracer = tracer
+        self.tracer = registry.bind(self.engine, cfg, scene, self.flat,
+                                    self.device, built)
         # Scene state of the secondary passes (the direct route set the
         # normals and the box in its build).
         def dev(a, dtype=np.float32):
@@ -379,13 +210,21 @@ class Renderer:
         self.mat_diffuse = dev([m.diffuse for m in scene.materials])
         self.mat_emissive = dev([m.emissive for m in scene.materials])
         self.mat_ids = dev(scene.mat_ids, np.int64)
-        if self.primary_engine is not None:
-            if scene.num_tris > DENSE_MAX_TRIS:
-                self.primary_engine = None   # sorts and tables blow up
-            else:
-                self._br_verts = torch.from_numpy(
-                    np.ascontiguousarray(scene.tri_verts(),
-                                         dtype=np.float32)).to(self.device)
+        # The screen-space engine, where cfg.engine names one, serves
+        # canonical primary rays once prepare_primary arms it.
+        self.screen = registry.screen_engine(cfg.engine, scene, self.device,
+                                             dense_kernel)
+
+    @property
+    def tables(self):
+        """The tables the BVH engine traces (after update_positions, the
+        rebuilt ones)."""
+        return self.tracer.tables
+
+    @property
+    def packed(self):
+        """The packed tree the tables were made from."""
+        return self.tracer.packed
 
     def _set_box(self, lo: np.ndarray, hi: np.ndarray, lo_dev: torch.Tensor,
                  hi_dev: torch.Tensor):
@@ -408,7 +247,7 @@ class Renderer:
         build_lbvh_packed does. Counters <stage>_tris, <stage>_nodes,
         <stage>_retries (the compact_cap retry) and <stage>_scan_launches
         (row-scan kernel launches: 4 a try on a CUDA device, 0 on the
-        CPU)."""
+        CPU). Returns (packed, tables)."""
         tpr, npr = 12, 1
         n = self._indices.shape[0]
         scans = row_scan_i32.launches
@@ -437,28 +276,26 @@ class Renderer:
                 top = carried[6:8].tolist()
             tables = tables_from_device(packed.nodes8, packed.tris12,
                                         packed.num_nodes, npr, tpr, top=top)
-        self.packed, self.tables, self.geom_normals = packed, tables, gn
+        self.geom_normals = gn
         self._set_box(lo, hi, args[3], args[4])
         timer.count(f"{stage}_tris", n)
         timer.count(f"{stage}_nodes", packed.num_nodes)
         timer.count(f"{stage}_retries", retries)
         timer.count(f"{stage}_scan_launches", row_scan_i32.launches - scans)
+        return packed, tables
 
     def update_positions(self, positions: torch.Tensor) -> dict:
         """Move the scene's vertices and rebuild the tree on the device:
-        `positions` (V, 3) float32 on the renderer's device, V the scene's
-        vertex count; the topology (indices, materials) stays. One call
-        gathers the triangles, takes their boxes, the scene box and the
-        geometric normals, and builds the LBVH and its packed tables from
-        these positions alone; render() then traces them. Its one host
-        read is node_count, with the box riding on it; nothing on the host
-        grows with the scene. The direct LBVH route only (builder "lbvh",
-        engine "auto" or "packet", no `flat`); any other raises
-        NotImplementedError. `self.scene` keeps the positions it was built
-        with. Returns the call's stats: counters rebuild_tris,
-        rebuild_nodes, rebuild_retries, rebuild_scan_launches, copies and
-        copy_bytes, and while
-        tracing is on the stage times rebuild and host_rebuild."""
+        `positions` (V, 3) float32 on the renderer's device; the topology
+        (indices, materials) stays, and `self.scene` keeps the positions it
+        was built with. One call builds the LBVH and its packed tables from
+        these positions alone (`_rebuild`, one host read); render() then
+        traces them. The direct LBVH route only (builder "lbvh", engine
+        "auto" or "packet", no `flat`); any other raises
+        NotImplementedError. Returns the call's stats: counters
+        rebuild_tris, rebuild_nodes, rebuild_retries, rebuild_scan_launches,
+        copies and copy_bytes, and while tracing is on the stage times
+        rebuild and host_rebuild."""
         if self._indices is None:
             raise NotImplementedError(
                 "update_positions rebuilds the direct LBVH route only "
@@ -480,7 +317,8 @@ class Renderer:
         timer = timing.StageTimer(self.device)
         self.updates += 1
         with timer.frame("ntrace.update_positions", str(self.updates)):
-            self._rebuild(positions.contiguous(), timer, "rebuild")
+            self.tracer.packed, self.tracer.tables = self._rebuild(
+                positions.contiguous(), timer, "rebuild")
         return timer.ms()
 
     def prepare_primary(self, cam: dict, width: int, height: int) -> bool:
@@ -489,151 +327,15 @@ class Renderer:
         the BVH path (no screen-space engine, a frame that does not tile, a
         bin grid too large for the sort key, or, for the dense engine, a
         pair budget the camera would exceed)."""
-        self._br = None
-        if self.primary_engine == "binraster":
-            return self._prepare_v1(cam, width, height)
-        if self.primary_engine != "binraster_dense":
-            return False
-        if width % DENSE_TILE or height % DENSE_TILE:
-            return False
-        txn, tyn = width // DENSE_TILE, height // DENSE_TILE
-        try:
-            mcodes = bd.bin_mcodes(txn, tyn, 31 - bd.Z_BITS)
-        except ValueError:
-            return False      # bin grid exceeds the fused key's bin bits
-        kw = dict(width=width, height=height, tile=DENSE_TILE)
-        total, n_mid, n_g = (int(x) for x in bd.count_pairs_dense(
-            self._br_verts, cam, k_slots=DENSE_K_CAP, k2_slots=DENSE_K_CAP,
-            **kw))
-        if total + n_mid > DENSE_MAX_PAIRS:
-            return False
-        _, hist, _ = bd.count_hist_dense(self._br_verts, cam,
-                                         k_cap=DENSE_K_CAP, **kw)
-        n_ks = bd.pick_nks(hist.cpu().numpy())
-        p_max = bd.pick_cap(sum(n_ks), 16 * bd.TPT)
-        # The reference gates only on the exact count (ADVICE r5,
-        # renderer.py:1009), but p_max, over the quantised slices, is what
-        # every prep op and the tile table scale with.
-        if p_max > DENSE_MAX_PAIRS:
-            return False
-        self._br = {
-            "width": width, "height": height, "nb": txn * tyn,
-            "ray_rows": DENSE_TILE * DENSE_TILE // 128, "p_max": p_max,
-            "n_ks": n_ks,
-            "g2_max": bd.pick_cap(n_g, bd.TPT, pad=bd.TPT) if n_g else 0,
-            "mcodes": torch.from_numpy(mcodes).to(self.device),
-            "cam_pos": cam["pos"].clone(),
-        }
-        self._br["v_cap"] = bd.visit_cap(p_max, self._br["nb"],
-                                         self._br["g2_max"])
-        return True
-
-    def _prepare_v1(self, cam: dict, width: int, height: int) -> bool:
-        """Arm the v1 engine: 32-pixel bins, the fast prep's static sizes
-        from one count pass (renderer.py:931-964)."""
-        if width % br.TILE or height % br.TILE:
-            return False
-        txn, tyn = width // br.TILE, height // br.TILE
-        try:
-            mcodes = br._bin_mcodes(txn, tyn)
-        except ValueError:
-            return False      # bin grid exceeds the fused key's 10 bits
-        total, n_mid, n_g = (int(x) for x in br.count_pairs_fast(
-            self._br_verts, cam, width=width, height=height, tile=br.TILE,
-            k_slots=V1_K_SLOTS, k2_slots=V1_K2_SLOTS))
-        self._br = {
-            "width": width, "height": height, "nb": txn * tyn,
-            "p_max": br.pick_pmax(total), "g_max": br.pick_gmax(n_mid + n_g),
-            "g2_max": br.pick_gmax(n_g, floor=192),
-            "mcodes": torch.from_numpy(mcodes).to(self.device),
-            "cam_pos": cam["pos"].clone(),
-        }
-        return True
-
-    def _v1_prep(self, cam):
-        """The armed fast prep: (rows, row0, row1, g_r1, ok)."""
-        c = self._br
-        return br.binraster_prep_fast(
-            self._br_verts, cam, c["mcodes"], width=c["width"],
-            height=c["height"], tile=br.TILE, k_slots=V1_K_SLOTS,
-            g_max=c["g_max"], p_max=c["p_max"], k2_slots=V1_K2_SLOTS,
-            g2_max=c["g2_max"])
-
-    def _structure(self, cam):
-        """The armed engine's screen-space structure for `cam`."""
-        if self.primary_engine == "binraster":
-            return self._v1_prep(cam)
-        return self._dense_prep(cam)
-
-    def _dense_prep(self, cam):
-        """The armed prep v5: (rows, row0, row1, g_r1, ok)."""
-        c = self._br
-        return bd.binraster_prep_dense5(
-            self._br_verts, cam, c["mcodes"], width=c["width"],
-            height=c["height"], tile=DENSE_TILE, k_cap=DENSE_K_CAP,
-            p_max=c["p_max"], n_ks=c["n_ks"], g2_max=c["g2_max"],
-            z_bits=bd.Z_BITS)
+        return self.screen is not None and self.screen.arm(cam, width,
+                                                           height)
 
     def freeze_primary_structure(self, cam: dict) -> float:
         """Build the screen-space structure once and keep it for later
         trace_primary calls with this very camera (the analogue of a
         prebuilt BVH). Needs a prior successful prepare_primary. Returns
         the build's wall seconds."""
-        t0 = time.perf_counter()
-        out = self._structure(cam)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self._br["frozen"] = out
-        self._br["frozen_cam"] = {k: v.clone() for k, v in cam.items()}
-        return time.perf_counter() - t0
-
-    def _frozen_structure(self, cam):
-        """The frozen structure when it was built for exactly `cam`, else
-        None: a camera rotated in place passes the ray contract but would
-        trace stale bins."""
-        fc = self._br.get("frozen_cam")
-        if fc is None or fc.keys() != cam.keys():
-            return None
-        if all(torch.equal(cam[k], fc[k]) for k in fc):
-            return self._br["frozen"]
-        return None
-
-    def _trace_binraster_dense(self, dirn, tmin, tmax, cam):
-        c = self._br
-        frozen = self._frozen_structure(cam)
-        rows, r0, r1, g1, ok = (frozen if frozen is not None
-                                else self._dense_prep(cam))
-        dirs, scalars = bd.dense_rays(dirn, cam["pos"], tmin[0], tmax[0],
-                                      c["nb"], c["ray_rows"])
-        kw = dict(n_bins=c["nb"], ray_rows=c["ray_rows"])
-        if self.dense_kernel == "visits":
-            vt, bv = bd.build_visit_list(r0, r1, g1, v_cap=c["v_cap"],
-                                         nb=c["nb"])
-            tri, t, u, v = bd.trace_dense_visits(rows, vt, bv, dirs,
-                                                 scalars, **kw)
-        elif self.dense_kernel == "dma":
-            tri, t, u, v = bd.trace_dense_rows_dma(rows, r0, r1, dirs,
-                                                   scalars, g1, **kw)
-        else:
-            tri, t, u, v = bd.trace_dense_rows(rows, r0, r1, dirs, scalars,
-                                               g1, ez_chunk=DENSE_EZ_CHUNK,
-                                               **kw)
-        # A static size that was too small poisons every hit: loud.
-        return torch.where(ok, tri, -2), t, u, v
-
-    def _trace_binraster(self, dirn, tmin, tmax, cam):
-        """The v1 engine's frame: the fast prep (or the frozen structure)
-        and the v1 kernel."""
-        c = self._br
-        frozen = self._frozen_structure(cam)
-        rows, r0, r1, g1, ok = (frozen if frozen is not None
-                                else self._v1_prep(cam))
-        dirs, scalars = br.dense_rays(dirn, cam["pos"], tmin[0], tmax[0],
-                                      c["nb"], br.RAY_ROWS)
-        tri, t, u, v = br.trace_binraster_rows(
-            rows, r0, r1, dirs, scalars, g1, n_bins=c["nb"],
-            unroll=V1_UNROLL, ez_chunk=V1_EZ_CHUNK)
-        return torch.where(ok, tri, -2), t, u, v
+        return self.screen.freeze(cam)
 
     def trace_primary(self, orig, dirn, tmin, tmax, cam=None,
                       canonical=None):
@@ -645,8 +347,9 @@ class Renderer:
         path. canonical: None checks the contract; True asserts it and
         raises ValueError when the rays break it; False forces the BVH
         path."""
-        armed = cam is not None and self._br is not None
-        if canonical is True and armed and not self._binraster_contract_ok(
+        screen = self.screen
+        armed = cam is not None and screen is not None and screen.armed
+        if canonical is True and armed and not screen.canonical(
                 orig, tmin, tmax, cam):
             raise ValueError(
                 "trace_primary(canonical=True): rays violate the bin-raster "
@@ -654,20 +357,14 @@ class Renderer:
                 "tmax); rebuild the batch with raygen.primary(cam) or pass "
                 "canonical=False")
         if (armed and canonical is not False
-                and dirn.shape[0] == self._br["width"] * self._br["height"]
+                and dirn.shape[0] == screen.sizes["width"]
+                * screen.sizes["height"]
                 and (canonical is True
-                     or self._binraster_contract_ok(orig, tmin, tmax, cam))):
-            if self.primary_engine == "binraster":
-                return self._trace_binraster(dirn, tmin, tmax, cam)
-            return self._trace_binraster_dense(dirn, tmin, tmax, cam)
-        return _trace_batched(self._tracer, RayBatch(orig, dirn, tmin, tmax),
-                              self._cap(), False)
-
-    def _binraster_contract_ok(self, orig, tmin, tmax, cam) -> bool:
-        """Uniform tmin == znear, uniform tmax, every origin at the armed
-        camera position."""
-        return bool(((tmin == cam["znear"]) & (tmax == tmax[0])
-                     & (orig == self._br["cam_pos"]).all(dim=-1)).all())
+                     or screen.canonical(orig, tmin, tmax, cam))):
+            return screen.trace(dirn, tmin[0], tmax[0], cam)
+        return _trace_batched(self.tracer.trace,
+                              RayBatch(orig, dirn, tmin, tmax), self._cap(),
+                              False)
 
     def _cap(self) -> int:
         """Per-dispatch ray cap."""
@@ -725,11 +422,12 @@ class Renderer:
             return sec, mode == "ao"
         raise ValueError(f"no secondary pass for mode {mode!r}")
 
-    def _secondary_tracer(self):
-        """The tracer of the secondary passes: the plain engine tracer.
-        seed_secondary and stage_secondary "auto" resolve to off (the
-        reference's auto needs tuned.json entries, and the port reads no
-        tuned.json); "on" is not ported yet."""
+    def _trace_secondary(self, batch: RayBatch, any_hit: bool):
+        """One secondary pass through the BVH engine (the reference's
+        plain-tracer branch of `_secondary_tracer`): the live prefix of a
+        sorted batch, or the whole batch. seed_secondary and
+        stage_secondary "auto" resolve to off (the reference's auto needs
+        tuned.json entries); "on" is not ported yet."""
         for name in ("seed_secondary", "stage_secondary"):
             value = getattr(self.cfg, name)
             if value == "on":
@@ -739,16 +437,10 @@ class Renderer:
             if value not in ("auto", "off"):
                 raise ValueError(f"{name} must be on, off or auto, not "
                                  f"{value!r}")
-        return self._tracer
-
-    def _trace_secondary(self, batch: RayBatch, any_hit: bool):
-        """One secondary pass: the live prefix of a sorted batch, or the
-        whole batch."""
-        tr = self._secondary_tracer()
         if self.cfg.sort_secondary:   # dead rays are at the end
-            return _compact_trace(tr, batch, self._cap(), any_hit,
-                                  compact=self.cfg.compact_rays)
-        return _trace_batched(tr, batch, self._cap(), any_hit)
+            return _compact_trace(self.tracer.trace, batch, self._cap(),
+                                  any_hit, compact=self.cfg.compact_rays)
+        return _trace_batched(self.tracer.trace, batch, self._cap(), any_hit)
 
     def render(self, camera: Camera, mode: str | None = None) -> RenderResult:
         """One frame. Its stats hold the ray counts of each pass and the
@@ -796,8 +488,8 @@ class Renderer:
             with timer.stage("raygen_shadow"):
                 sbatch, _ = self.gen_secondary(camera, mode, batch, tri, t)
             with timer.stage("trace_shadow"):
-                stri = _trace_batched(self._tracer, sbatch, self._cap(),
-                                      True)[0]
+                stri = _trace_batched(self.tracer.trace, sbatch,
+                                      self._cap(), True)[0]
             timer.count("rays_shadow", sbatch.num_rays)
             color = shadow_mix(base_col, (stri < 0).to(torch.float32))
         elif mode in ("ao", "diffuse"):

@@ -1,12 +1,14 @@
-"""The v1 screen-space primary engine, and the stage both screen-space
-engines share: project, clip, bin.
+"""The v1 screen-space primary engine, and what both screen-space engines
+share: project, clip, bin (`_counts`, `bin_mcodes`, `count_pairs_fast`),
+the kernel operands and `ScreenEngine`, the armed engine.
 
 Counterpart of ntrace_tpu/trace/binraster.py: the constants (54-57),
 `bin_order` (64), `pick_pmax` (75), `_project` (89-99), `_counts`
 (102-179), the v0 prep `count_pairs` and `binraster_prep` (183-270),
 `_bin_mcodes` (277), `count_pairs_fast` (292), `binraster_prep_fast`
 (309-465), `trace_binraster_rows` (611), `pick_gmax` (660) and
-`trace_binraster_primary` (669). Canonical primary rays (every origin at
+`trace_binraster_primary` (669); `V1Engine` is the reference renderer's
+v1 arming (renderer.py:931-964, 1111-1134). Canonical primary rays (every origin at
 the camera, one tmin, one tmax) are traced by 32 x 32 pixel bins:
 
 1. The prep bins every triangle (`_counts`), emits one (bin, triangle)
@@ -39,6 +41,8 @@ on an out-of-range cast. `jax.lax.sort` is stable by default, so
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -262,13 +266,20 @@ def binraster_prep(verts, cam, block_bin, *, width, height, tile, p_max):
 # -- the fast prep: fixed slots and a global tier --------------------------
 
 
-def _bin_mcodes(txn: int, tyn: int) -> np.ndarray:
-    """Sorted 2D Morton codes of all bins: bin slot b has code [b]."""
+def bin_mcodes(txn: int, tyn: int, max_bits: int) -> np.ndarray:
+    """Sorted 2D Morton codes of all bins (bin slot b has code [b]), each
+    under max_bits, the bin bits of a 31-bit fused sort key."""
     bx, by = np.meshgrid(np.arange(txn), np.arange(tyn))
     mc = np.sort(morton2d(np, bx.ravel(), by.ravel()))
-    if mc[-1] >= 1 << 10:
-        raise ValueError("bin grid too large for the 31-bit fused sort key")
+    if mc[-1] >= 1 << max_bits:
+        raise ValueError("bin grid too large for the 31-bit fused sort "
+                         "key's bin bits")
     return mc.astype(np.int32)
+
+
+def _bin_mcodes(txn: int, tyn: int) -> np.ndarray:
+    """The fast prep's bin codes: 10 bits (its key is bin << 21 | z)."""
+    return bin_mcodes(txn, tyn, 10)
 
 
 def count_pairs_fast(verts, cam, *, width, height, tile, k_slots,
@@ -594,6 +605,128 @@ def trace_binraster_rows_ref(rows, row0, row1, dirs, scalars, g_r1=None, *,
                        scalars, n_bins, TILE * TILE)
 
 
+# The renderer's v1 settings: the reference renderer's code defaults for
+# what it reads from tuned.json (br_k, br_k2, br_unroll, br_ez).
+V1_K_SLOTS = 8               # slots per triangle in the first tier
+V1_K2_SLOTS = 64             # slots per triangle in the mid tier
+V1_UNROLL = 4                # rows staged at once without early-z
+V1_EZ_CHUNK = 8              # early-z after every 8 rows
+# Scenes above this many triangles never arm a screen-space engine (the
+# reference's NTRACE_BINRASTER_MAX_TRIS default): their sorts and tables
+# scale with them.
+MAX_TRIS = 3_000_000
+
+
+class ScreenEngine:
+    """A screen-space engine over one scene's triangles `verts` (n, 3, 3)
+    f32 on the device: `arm` sizes it for a camera and frame, `trace`
+    traces that canonical primary frame, `freeze` keeps one camera's
+    structure. Subclasses set `name`, `tile`, `ray_rows` and give
+    `bin_codes`, `count` (the static sizes, None to decline), `prep` and
+    `kernel`."""
+    name = tile = ray_rows = None
+
+    def __init__(self, verts: torch.Tensor):
+        self.verts = verts
+        self.sizes = self.mcodes = self.cam_pos = self._frozen = None
+
+    @property
+    def armed(self) -> bool:
+        return self.sizes is not None
+
+    def arm(self, cam: dict, width: int, height: int, **given) -> bool:
+        """Size the engine from one count pass (`given` fixes sizes).
+        False, unarmed, for a frame that does not tile, a bin grid the
+        fused sort key cannot hold, or sizes `count` declines."""
+        self.sizes = self._frozen = None
+        if width % self.tile or height % self.tile:
+            return False
+        txn, tyn = width // self.tile, height // self.tile
+        try:
+            mcodes = self.bin_codes(txn, tyn)
+        except ValueError:
+            return False
+        sizes = self.count(cam, width, height, txn * tyn, **given)
+        if sizes is None:
+            return False
+        self.sizes = dict(width=width, height=height, nb=txn * tyn, **sizes)
+        self.mcodes = torch.from_numpy(mcodes).to(self.verts.device)
+        self.cam_pos = cam["pos"].clone()
+        return True
+
+    def canonical(self, orig, tmin, tmax, cam) -> bool:
+        """Uniform tmin == znear, uniform tmax, every origin at the armed
+        camera position."""
+        return bool(((tmin == cam["znear"]) & (tmax == tmax[0])
+                     & (orig == self.cam_pos).all(dim=-1)).all())
+
+    def freeze(self, cam: dict) -> float:
+        """Build the structure once and keep it for traces with this very
+        camera. Returns the build's wall seconds."""
+        t0 = time.perf_counter()
+        out = self.prep(cam)
+        if self.verts.device.type == "cuda":
+            torch.cuda.synchronize(self.verts.device)
+        self._frozen = out, {k: v.clone() for k, v in cam.items()}
+        return time.perf_counter() - t0
+
+    def structure(self, cam: dict):
+        """(rows, row0, row1, g_r1, ok): the frozen structure when it was
+        built for exactly `cam` (a camera rotated in place keeps the ray
+        contract but would trace stale bins), else a new prep."""
+        if self._frozen is not None:
+            out, fc = self._frozen
+            if fc.keys() == cam.keys() and all(torch.equal(cam[k], fc[k])
+                                               for k in fc):
+                return out
+        return self.prep(cam)
+
+    def trace(self, dirn, tmin, tmax, cam: dict):
+        """(tri, t, u, v) of the armed frame, dirn (W*H, 3) in Morton slot
+        order, tmin and tmax 0-d; tri -2 on every ray when a static size
+        was too small (loud, never silently wrong)."""
+        rows, r0, r1, g1, ok = self.structure(cam)
+        dirs, scalars = dense_rays(dirn, cam["pos"], tmin, tmax,
+                                   self.sizes["nb"], self.ray_rows)
+        tri, t, u, v = self.kernel(rows, r0, r1, g1, dirs, scalars)
+        return torch.where(ok, tri, -2), t, u, v
+
+
+class V1Engine(ScreenEngine):
+    """The v1 engine: 32-pixel bins, the fast prep, the v1 kernel."""
+    name, tile, ray_rows = "binraster", TILE, RAY_ROWS
+
+    def __init__(self, verts, *, k_slots=V1_K_SLOTS, k2_slots=V1_K2_SLOTS,
+                 unroll=V1_UNROLL, ez_chunk=V1_EZ_CHUNK, payload=True):
+        super().__init__(verts)
+        self.k_slots, self.k2_slots = k_slots, k2_slots
+        self.unroll, self.ez_chunk, self.payload = unroll, ez_chunk, payload
+
+    def bin_codes(self, txn, tyn):
+        return _bin_mcodes(txn, tyn)
+
+    def count(self, cam, width, height, nb, p_max=None, g_max=None):
+        total, n_mid, n_g = (int(x) for x in count_pairs_fast(
+            self.verts, cam, width=width, height=height, tile=TILE,
+            k_slots=self.k_slots, k2_slots=self.k2_slots))
+        return {"p_max": pick_pmax(total) if p_max is None else p_max,
+                "g_max": pick_gmax(n_mid + n_g) if g_max is None else g_max,
+                "g2_max": pick_gmax(n_g, floor=192)}
+
+    def prep(self, cam):
+        s = self.sizes
+        return binraster_prep_fast(
+            self.verts, cam, self.mcodes, width=s["width"],
+            height=s["height"], tile=TILE, k_slots=self.k_slots,
+            g_max=s["g_max"], p_max=s["p_max"], payload=self.payload,
+            k2_slots=self.k2_slots, g2_max=s["g2_max"])
+
+    def kernel(self, rows, r0, r1, g1, dirs, scalars):
+        return trace_binraster_rows(
+            rows, r0, r1, dirs, scalars, g1, n_bins=self.sizes["nb"],
+            unroll=self.unroll, ez_chunk=self.ez_chunk)
+
+
 def trace_binraster_primary(verts, cam, dirn, *, width, height, tile=TILE,
                             unroll=4, ez_chunk=8, p_max=None, prep="fast",
                             k_slots=8, g_max=None, payload=True, k2_slots=64):
@@ -602,9 +735,10 @@ def trace_binraster_primary(verts, cam, dirn, *, width, height, tile=TILE,
     verts: (n, 3, 3) f32 on the device; cam: camera_arrays dict; dirn:
     (W*H, 3) unit dirs in Morton slot order, from the camera position with
     tmin = znear and tmax = zfar. W and H are multiples of 32. prep: "fast"
-    (fixed slots) or "v0" (stream expansion), the same image. Returns
-    (tri, t, u, v) in slot order; "fast" poisons every hit with -2 when a
-    static size was too small, "v0" rebuilds at a bigger p_max.
+    (fixed slots, a V1Engine armed and traced) or "v0" (stream expansion),
+    the same image. Returns (tri, t, u, v) in slot order; "fast" poisons
+    every hit with -2 when a static size was too small, "v0" rebuilds at a
+    bigger p_max.
     """
     if width % tile or height % tile or tile & (tile - 1):
         raise ValueError("W/H must be multiples of the power-of-two tile")
@@ -613,28 +747,19 @@ def trace_binraster_primary(verts, cam, dirn, *, width, height, tile=TILE,
                          "be 32")
     if prep not in ("fast", "v0"):
         raise ValueError(f"prep must be fast or v0, not {prep!r}")
+    if prep == "fast":
+        eng = V1Engine(verts, k_slots=k_slots, k2_slots=k2_slots,
+                       unroll=unroll, ez_chunk=ez_chunk, payload=payload)
+        if not eng.arm(cam, width, height, p_max=p_max, g_max=g_max):
+            raise ValueError("bin grid too large for the 31-bit fused sort "
+                             "key")
+        return eng.trace(dirn, cam["znear"], cam["zfar"], cam)
     txn, tyn = width // tile, height // tile
     nb = txn * tyn
     dev = verts.device
     dirs, scalars = dense_rays(dirn, cam["pos"], cam["znear"], cam["zfar"],
                                nb, RAY_ROWS)
     kw = dict(width=width, height=height, tile=tile)
-    if prep == "fast":
-        total, n_mid, n_g = (int(x) for x in count_pairs_fast(
-            verts, cam, k_slots=k_slots, k2_slots=k2_slots, **kw))
-        if p_max is None:
-            p_max = pick_pmax(total)
-        if g_max is None:
-            g_max = pick_gmax(n_mid + n_g)
-        mcodes = torch.from_numpy(_bin_mcodes(txn, tyn)).to(dev)
-        rows, row0, row1, g_r1, ok = binraster_prep_fast(
-            verts, cam, mcodes, k_slots=k_slots, g_max=g_max, p_max=p_max,
-            payload=payload, k2_slots=k2_slots,
-            g2_max=pick_gmax(n_g, floor=192), **kw)
-        tri, t, u, v = trace_binraster_rows(
-            rows, row0, row1, dirs, scalars, g_r1, n_bins=nb, unroll=unroll,
-            ez_chunk=ez_chunk)
-        return torch.where(ok, tri, -2), t, u, v
     if p_max is None:
         p_max = pick_pmax(int(count_pairs(verts, cam, **kw)))
     block_bin = torch.from_numpy(bin_order(txn, tyn)).to(dev)

@@ -23,7 +23,7 @@ of tile x tile pixels instead of by BVH traversal:
 
 Bins only cull, so the result is the closest hit with the lowest triangle
 id on a tie, exactly as the BVH engines give it. A prep whose static sizes
-turn out too small reports `ok` False, and `trace_dense_primary` then
+turn out too small reports `ok` False, and `DenseEngine.trace` then
 poisons every hit with -2: loud, never silently wrong.
 
 A CUDA tensor launches the kernel; a CPU tensor runs the plain torch
@@ -37,13 +37,12 @@ import numpy as np
 import torch
 
 from ntrace_tpu_torch.device import uses_kernel
-from ntrace_tpu_torch.host import morton2d
 from ntrace_tpu_torch.ops.morton import part1by1
-from ntrace_tpu_torch.trace.binraster import (INF, Z_MARGIN, _counts,
-                                              _pad_rows, _tri_lanes,
-                                              _vert_channels, bin_visits,
-                                              check_operands,
-                                              dense_rays, fold_visits,
+from ntrace_tpu_torch.trace.binraster import (INF, Z_MARGIN, ScreenEngine,
+                                              _counts, _pad_rows, _tri_lanes,
+                                              _vert_channels, bin_mcodes,
+                                              bin_visits, check_operands,
+                                              count_pairs_fast, fold_visits,
                                               launch, range_operands)
 
 GPT = 8          # tris per group (sublanes)
@@ -53,15 +52,6 @@ CPL = 11         # lanes per group: v0(3) e1(3) e2(3) tid zmin
 SENT = 0x7FFFFFFF    # sort key of an empty slot
 Z_BITS = 12          # low key bits holding truncated z; bins get the rest
 KERNELS = ("walk", "dma", "visits")
-
-
-def bin_mcodes(txn: int, tyn: int, max_bits: int) -> np.ndarray:
-    """Sorted 2D Morton codes of all bins (bin slot = Morton block rank)."""
-    bx, by = np.meshgrid(np.arange(txn), np.arange(tyn))
-    mc = np.sort(morton2d(np, bx.ravel(), by.ravel()))
-    if mc[-1] >= 1 << max_bits:
-        raise ValueError("bin grid exceeds the fused sort key's bin bits")
-    return mc.astype(np.int32)
 
 
 def pick_cap(total: int, quantum: int, slack: float = 1.05,
@@ -90,14 +80,9 @@ def pick_nks(cnt_hist, quantum: int = 2048, slack: float = 1.05,
     return tuple(n_ks)
 
 
-def count_pairs_dense(verts, cam, *, width, height, tile, k_slots,
-                      k2_slots=64):
-    """(sorted-tier pairs incl. mid tier, mid-tier tris, global tris)."""
-    *_, cnt, _ = _counts(verts, cam, width=width, height=height, tile=tile)
-    over = cnt > k_slots
-    over2 = cnt > k2_slots
-    return (torch.where(over2, 0, cnt).sum(), (over & ~over2).sum(),
-            over2.sum())
+# (sorted-tier pairs incl. mid tier, mid-tier tris, global tris): the v1
+# engine's three counts, at the dense tile and k_slots = k2_slots = k_cap.
+count_pairs_dense = count_pairs_fast
 
 
 def count_hist_dense(verts, cam, *, width, height, tile, k_cap=64):
@@ -423,10 +408,82 @@ def trace_dense_visits_ref(rows, vis_tile, vis_bin, dirs, scalars, *,
                        dirs, scalars, n_bins, ray_rows * 128)
 
 
+# The renderer's dense settings: the reference renderer's code defaults for
+# what it reads from tuned.json (br2_tile, br2_kcap, br2_ez,
+# br2_max_pairs). The prep is always v5.
+DENSE_TILE = 16              # bin edge in pixels
+DENSE_K_CAP = 64             # a triangle over more bins: the global tier
+DENSE_EZ_CHUNK = 0           # early-z off
+DENSE_MAX_PAIRS = 2_000_000  # pair budget; above it the BVH path serves
+
+
+class DenseEngine(ScreenEngine):
+    """The dense engine: tile x tile pixel bins, prep v5 and the kernel
+    `kernel` ("walk", "dma" or "visits"; bit-identical), as the reference
+    renderer arms it (renderer.py:966-1027). `max_pairs` (None: no budget)
+    bounds the exact count and the armed p_max: the reference gates only
+    on the count (ADVICE r5, renderer.py:1009), but p_max, over the
+    quantised slices, is what every prep op and the tile table scale
+    with."""
+    name = "binraster_dense"
+
+    def __init__(self, verts, *, kernel="walk", tile=DENSE_TILE,
+                 k_cap=DENSE_K_CAP, ez_chunk=DENSE_EZ_CHUNK,
+                 max_pairs=DENSE_MAX_PAIRS):
+        if kernel not in KERNELS:
+            raise ValueError(f"kernel must be one of {KERNELS}, not "
+                             f"{kernel!r}")
+        super().__init__(verts)
+        self.tile, self.ray_rows = tile, tile * tile // 128
+        self.kernel_name, self.k_cap = kernel, k_cap
+        self.ez_chunk, self.max_pairs = ez_chunk, max_pairs
+
+    def bin_codes(self, txn, tyn):
+        return bin_mcodes(txn, tyn, 31 - Z_BITS)
+
+    def count(self, cam, width, height, nb, p_max=None):
+        kw = dict(width=width, height=height, tile=self.tile)
+        total, n_mid, n_g = (int(x) for x in count_pairs_dense(
+            self.verts, cam, k_slots=self.k_cap, k2_slots=self.k_cap, **kw))
+        cap = self.max_pairs
+        if cap is not None and total + n_mid > cap:
+            return None
+        _, hist, _ = count_hist_dense(self.verts, cam, k_cap=self.k_cap,
+                                      **kw)
+        n_ks = pick_nks(hist.cpu().numpy())
+        p_max = pick_cap(sum(n_ks), 16 * TPT) if p_max is None else p_max
+        if cap is not None and p_max > cap:
+            return None
+        g2_max = pick_cap(n_g, TPT, pad=TPT) if n_g else 0
+        return {"p_max": p_max, "n_ks": n_ks, "g2_max": g2_max,
+                "v_cap": visit_cap(p_max, nb, g2_max)}
+
+    def prep(self, cam):
+        s = self.sizes
+        return binraster_prep_dense5(
+            self.verts, cam, self.mcodes, width=s["width"],
+            height=s["height"], tile=self.tile, k_cap=self.k_cap,
+            p_max=s["p_max"], n_ks=s["n_ks"], g2_max=s["g2_max"],
+            z_bits=Z_BITS)
+
+    def kernel(self, rows, r0, r1, g1, dirs, scalars):
+        kw = dict(n_bins=self.sizes["nb"], ray_rows=self.ray_rows)
+        if self.kernel_name == "visits":
+            vt, bv = build_visit_list(r0, r1, g1, v_cap=self.sizes["v_cap"],
+                                      nb=kw["n_bins"])
+            return trace_dense_visits(rows, vt, bv, dirs, scalars, **kw)
+        if self.kernel_name == "dma":
+            return trace_dense_rows_dma(rows, r0, r1, dirs, scalars, g1,
+                                        **kw)
+        return trace_dense_rows(rows, r0, r1, dirs, scalars, g1,
+                                ez_chunk=self.ez_chunk, **kw)
+
+
 def trace_dense_primary(verts, cam, dirn, *, width, height, tile=16,
                         ez_chunk=4, p_max=None, k_cap=64, sort_mode="v5",
                         kernel="walk"):
-    """Primary-ray closest hit over the full camera grid.
+    """Primary-ray closest hit over the full camera grid: a DenseEngine
+    with no pair budget, armed and traced.
 
     verts: (n, 3, 3) f32 on the device; cam: camera_arrays dict; dirn:
     (W*H, 3) unit dirs in Morton slot order, from the camera position with
@@ -438,41 +495,12 @@ def trace_dense_primary(verts, cam, dirn, *, width, height, tile=16,
         raise NotImplementedError(
             f"sort_mode {sort_mode!r}: only prep v5 is ported (v2-v4 were "
             "measured and superseded, PERF_NOTES.md:593-644)")
-    if kernel not in KERNELS:
-        raise ValueError(f"kernel must be one of {KERNELS}, not {kernel!r}")
     if width % tile or height % tile or tile & (tile - 1):
         raise ValueError("W/H must be multiples of the power-of-two tile")
     if (tile * tile) % 128:
         raise ValueError("tile*tile must be a multiple of 128")
-    ray_rows = tile * tile // 128
-    txn, tyn = width // tile, height // tile
-    nb = txn * tyn
-    mcodes = torch.from_numpy(bin_mcodes(txn, tyn, 31 - Z_BITS)).to(
-        verts.device)
-    dirs, scalars = dense_rays(dirn, cam["pos"], cam["znear"], cam["zfar"],
-                               nb, ray_rows)
-    kw = dict(width=width, height=height, tile=tile)
-    _, _, n_g = (int(x) for x in count_pairs_dense(
-        verts, cam, k_slots=k_cap, k2_slots=k_cap, **kw))
-    _, hist, _ = count_hist_dense(verts, cam, k_cap=k_cap, **kw)
-    n_ks = pick_nks(hist.cpu().numpy())
-    if p_max is None:
-        p_max = pick_cap(sum(n_ks), 16 * TPT)
-    g2_max = pick_cap(n_g, TPT, pad=TPT) if n_g else 0
-    rows, row0, row1, g_r1, ok = binraster_prep_dense5(
-        verts, cam, mcodes, p_max=p_max, n_ks=n_ks, k_cap=k_cap,
-        g2_max=g2_max, z_bits=Z_BITS, **kw)
-    if kernel == "visits":
-        vt, bv = build_visit_list(row0, row1, g_r1,
-                                  v_cap=visit_cap(p_max, nb, g2_max), nb=nb)
-        tri, t, u, v = trace_dense_visits(rows, vt, bv, dirs, scalars,
-                                          n_bins=nb, ray_rows=ray_rows)
-    elif kernel == "dma":
-        tri, t, u, v = trace_dense_rows_dma(
-            rows, row0, row1, dirs, scalars, g_r1, n_bins=nb,
-            ray_rows=ray_rows)
-    else:
-        tri, t, u, v = trace_dense_rows(
-            rows, row0, row1, dirs, scalars, g_r1, n_bins=nb,
-            ray_rows=ray_rows, ez_chunk=ez_chunk)
-    return torch.where(ok, tri, -2), t, u, v
+    eng = DenseEngine(verts, kernel=kernel, tile=tile, k_cap=k_cap,
+                      ez_chunk=ez_chunk, max_pairs=None)
+    if not eng.arm(cam, width, height, p_max=p_max):
+        raise ValueError("bin grid exceeds the fused sort key's bin bits")
+    return eng.trace(dirn, cam["znear"], cam["zfar"], cam)

@@ -404,7 +404,7 @@ def _armed(conference):
     order, _ = pixel_table(W, H)
     batch = raygen.primary(ca, W, H, torch.from_numpy(order.copy()))
     assert r.prepare_primary(ca, W, H)
-    assert r.engine == "packet" and r.primary_engine == "binraster"
+    assert r.engine == "packet" and isinstance(r.screen, br.V1Engine)
     return r, ca, batch
 
 
@@ -434,4 +434,4 @@ def test_v1_frozen_structure(conference, monkeypatch):
 def test_v1_declines_frames_that_do_not_tile(conference):
     r, ca, _ = _armed(conference)
     assert not r.prepare_primary(ca, 48, 48)
-    assert r._br is None
+    assert not r.screen.armed

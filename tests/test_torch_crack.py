@@ -22,13 +22,14 @@ import torch
 
 from ntrace_tpu_torch.host import (BuildConfig, Scene, brute_force_mt,
                                    get_scene, pack_bvh, pack_wide_bvh)
-from ntrace_tpu_torch.render.renderer import build_accel, pick_layout
+from ntrace_tpu_torch.render.renderer import build_accel
 from ntrace_tpu_torch.tables import tables_from_packed, tables_from_wide
 from ntrace_tpu_torch.trace.packet import trace_packet_ref
 from ntrace_tpu_torch.trace.packet_ifif import trace_packet_ifif_ref
 from ntrace_tpu_torch.trace.packet_pipe import trace_packet_pipe_ref
 from ntrace_tpu_torch.trace.packet_wide import trace_packet_wide_ref
 from ntrace_tpu_torch.trace.packet_ww import trace_packet_ww_ref
+from ntrace_tpu_torch.trace.registry import pick_layout
 
 TWINS = {
     "packet": trace_packet_ref, "ww": trace_packet_ww_ref,

@@ -269,7 +269,7 @@ def test_twin_is_visit_order_invariant():
     mcodes = torch.from_numpy(jax_bd.bin_mcodes(f.W // 16, f.H // 16, 19))
     rows, r0, r1, g1, ok = bd.binraster_prep_dense5(
         f.port_verts(), f.cam, mcodes, **args)
-    dirs, scalars = bd.dense_rays(torch.from_numpy(f.rays[1]),
+    dirs, scalars = br.dense_rays(torch.from_numpy(f.rays[1]),
                                   f.cam["pos"], f.cam["znear"],
                                   f.cam["zfar"], 16, 2)
     ops = (rows, r0, r1, dirs, scalars, g1)
@@ -389,7 +389,7 @@ def _frozen_ops(f, k_cap=64):
     rows, r0, r1, g1, _ = bd.binraster_prep_dense5(
         f.port_verts(), f.cam, mcodes, **args)
     nb = (f.W // 16) * (f.H // 16)
-    dirs, scalars = bd.dense_rays(torch.from_numpy(f.rays[1]),
+    dirs, scalars = br.dense_rays(torch.from_numpy(f.rays[1]),
                                   f.cam["pos"], f.cam["znear"],
                                   f.cam["zfar"], nb, 2)
     return (rows, r0, r1, dirs, scalars, g1), dict(n_bins=nb, ray_rows=2)
@@ -567,7 +567,7 @@ def _armed(conference, dense_kernel="walk"):
     order, _ = pixel_table(W, H)
     batch = raygen.primary(ca, W, H, torch.from_numpy(order.copy()))
     assert r.prepare_primary(ca, W, H)
-    assert r.engine == "packet" and r.primary_engine == "binraster_dense"
+    assert r.engine == "packet" and isinstance(r.screen, bd.DenseEngine)
     return r, ca, batch
 
 
@@ -587,9 +587,9 @@ def test_renderer_dense_matches_jax(conference, monkeypatch):
     before = bd.binraster_prep_dense5.calls
     got = r.render(cam)
     assert bd.binraster_prep_dense5.calls == before + 1
-    assert jr._br is not None and r._br is not None
-    assert r._br["p_max"] == jr._br["p_max"]
-    assert r._br["n_ks"] == jr._br["n_ks"]
+    assert jr._br is not None and r.screen.armed
+    assert r.screen.sizes["p_max"] == jr._br["p_max"]
+    assert r.screen.sizes["n_ks"] == jr._br["n_ks"]
     np.testing.assert_array_equal(got.hit_tri, ref.hit_tri)
     np.testing.assert_allclose(got.image, ref.image, rtol=0, atol=1e-6)
     assert (got.hit_tri >= 0).mean() > 0.5 and not (got.hit_tri == -2).any()
@@ -598,7 +598,7 @@ def test_renderer_dense_matches_jax(conference, monkeypatch):
 @pytest.mark.parametrize("kernel", ["dma", "visits"])
 def test_dense_and_packet_frames_agree(conference, kernel):
     r, ca, batch = _armed(conference, dense_kernel=kernel)
-    assert "v_cap" in r._br
+    assert "v_cap" in r.screen.sizes
     rays = (batch.orig, batch.dirn, batch.tmin, batch.tmax)
     dense = r.trace_primary(*rays, cam=ca, canonical=True)
     bvh = r.trace_primary(*rays, cam=ca, canonical=False)
@@ -635,11 +635,11 @@ def test_pair_budget_declines_arming(conference, monkeypatch, gate):
         # the quantised slices, does not: the reference would arm here
         # (ADVICE r5, renderer.py:1009); the port declines.
         total, n_mid, _ = (int(x) for x in bd.count_pairs_dense(
-            r._br_verts, ca, width=W, height=H, tile=16, k_slots=64))
-        assert r._br["p_max"] > total + n_mid
-        monkeypatch.setattr(port, "DENSE_MAX_PAIRS", total + n_mid)
+            r.screen.verts, ca, width=W, height=H, tile=16, k_slots=64))
+        assert r.screen.sizes["p_max"] > total + n_mid
+        monkeypatch.setattr(r.screen, "max_pairs", total + n_mid)
     assert not r.prepare_primary(ca, W, H)
-    assert r._br is None
+    assert not r.screen.armed
     tri, *_ = r.trace_primary(batch.orig, batch.dirn, batch.tmin,
                               batch.tmax, cam=ca, canonical=True)
     assert (tri >= 0).float().mean() > 0.5

@@ -32,9 +32,9 @@ from ntrace_tpu.scenes import default_camera, get_scene, make_random_soup
 from ntrace_tpu_torch import host
 from ntrace_tpu_torch.bvh import hlbvh, lbvh
 from ntrace_tpu_torch.host.scenes import make_single_triangle
-from ntrace_tpu_torch.render.renderer import (Renderer, build_accel,
-                                              pick_layout)
+from ntrace_tpu_torch.render.renderer import Renderer, build_accel
 from ntrace_tpu_torch.tables import tables_from_packed
+from ntrace_tpu_torch.trace.registry import pick_layout
 from ntrace_tpu_torch.trace.packet import trace_packet
 
 from conftest import random_rays

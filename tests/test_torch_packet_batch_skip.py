@@ -107,14 +107,14 @@ def conference_passes():
     r = Renderer(scene, bc, RenderConfig(width=32, height=24), flat=flat,
                  device="cpu")
     passes = {}
-    base = r._tracer
+    base = r.tracer.trace
 
     def tracer(o, d, tn, tx, any_hit):
         out = base(o, d, tn, tx, any_hit)
         passes[mode] = ((o, d, tn, tx), any_hit)
         return out
 
-    r._tracer = tracer
+    r.tracer.trace = tracer
     for mode in ("diffuse", "ao"):
         r.render(default_camera("conference"), mode)
     tables = tables_from_packed(pack_bvh(flat, scene.tri_verts(),

@@ -185,7 +185,7 @@ def test_bdl_largest_packet(soup_small, flat_small, rng):
     rays = _torch(orig, dirn, tmin, tmax)
     with pytest.raises(ValueError, match="rows"):
         trace_packet_bdl(tables, *rays, rows=64)
-    assert port.batch_knobs("packet_bdl", RenderConfig(
+    assert registry.batch_knobs("packet_bdl", RenderConfig(
         packet_rows=64))["rows"] == 32
     got = trace_packet_bdl(tables, *rays, rows=32)
     _assert_bit_equal(got, trace_packet_ref(tables, *rays))
@@ -382,14 +382,14 @@ def test_engines_render_every_mode(soup_small, flat_small, monkeypatch,
 
 def test_batch_knobs_follow_the_reference_clamps():
     cfg = RenderConfig(packet_rows=4, qgroup=4, merge_sibs=True)
-    assert port.batch_knobs("packet_bfs", cfg) == {"rows": 8}
-    assert port.batch_knobs("packet_dleaf", RenderConfig(
+    assert registry.batch_knobs("packet_bfs", cfg) == {"rows": 8}
+    assert registry.batch_knobs("packet_dleaf", RenderConfig(
         packet_rows=48)) == {"rows": 32, "drain_min": 0}
-    assert port.batch_knobs("packet_bdl", cfg) == {
+    assert registry.batch_knobs("packet_bdl", cfg) == {
         "rows": 8, "drain_min": 0, "qgroup": 4, "merge_sibs": True}
-    assert port.batch_knobs("packet_bdl", RenderConfig(
+    assert registry.batch_knobs("packet_bdl", RenderConfig(
         packet_rows=12, qgroup=8))["qgroup"] == 1
-    assert port.batch_knobs("packet", cfg) == {}
+    assert registry.batch_knobs("packet", cfg) == {}
 
 
 @pytest.mark.cuda

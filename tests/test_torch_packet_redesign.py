@@ -67,13 +67,13 @@ def conference():
     r = Renderer(scene, bc, RenderConfig(width=32, height=32, samples=1),
                  flat=flat, device="cpu")
     calls, passes = [], {}
-    base = r._tracer
+    base = r.tracer.trace
 
     def tracer(o, d, tn, tx, any_hit):
         calls.append(((o, d, tn, tx), any_hit))
         return base(o, d, tn, tx, any_hit)
 
-    r._tracer = tracer
+    r.tracer.trace = tracer
     for mode in ("diffuse", "ao", "shadow"):
         calls.clear()
         r.render(default_camera("conference"), mode)

@@ -21,7 +21,9 @@ from ntrace_tpu_torch.ray.pixeltable import pixel_table
 from ntrace_tpu_torch.ray.raybatch import RayBatch
 from ntrace_tpu_torch.render import renderer as port
 from ntrace_tpu_torch.render.renderer import Renderer, build_accel
-from ntrace_tpu_torch.tables import WideTables
+from ntrace_tpu_torch.tables import PackedTables, WideTables
+from ntrace_tpu_torch.trace import binraster as br
+from ntrace_tpu_torch.trace import registry
 
 from conftest import random_rays
 
@@ -67,9 +69,36 @@ def test_render_primary_matches_jax(conference):
                              rec.t) == 0
 
 
-@pytest.mark.parametrize("engine", ["auto", "wavefront", "packet"])
+@pytest.mark.parametrize("engine", ["auto", "wavefront", "packet", "*"])
 def test_packet_engine_names_resolve(conference, engine):
+    """auto, wavefront and packet resolve to the packet engine. "*": every
+    name the registry resolves binds tables from the conference FlatBVH in
+    the layout the renderer chose before the registry held it: pick_layout's
+    rows (12, 1) for the binary engines, one node record a row for bfs and
+    bdl, the 8-wide pack at 4 triangles a row for packet_wide, the FlatBVH
+    itself for cpu_golden; the unported names raise and name their item."""
     scene, flat = conference
+    if engine == "*":
+        for name in registry.kernel_names():
+            resolved = registry.resolve_kernel(name).engine
+            if resolved in registry.UNPORTED_ENGINES:
+                with pytest.raises(NotImplementedError, match="ROADMAP"):
+                    registry.engine_name(resolved)
+                continue
+            e = registry.bind(registry.engine_name(resolved), RenderConfig(),
+                              scene, flat, "cpu")
+            if e.name == "cpu_golden":
+                assert e.tables is flat and e.packed is None
+            elif e.name == "packet_wide":
+                assert isinstance(e.tables, WideTables)
+                assert e.tables.tris_per_row == e.packed.tris_per_row == 4
+                assert e.knobs == {"exact": False}
+            else:
+                assert isinstance(e.tables, PackedTables)
+                assert (e.tables.tris_per_row, e.tables.nodes_per_row) == (
+                    e.packed.tris_per_row, e.packed.nodes_per_row) == (12, 1)
+                assert e.knobs == registry.batch_knobs(e.name, RenderConfig())
+        return
     r = Renderer(scene, BENCH_BUILD, RenderConfig(engine=engine), flat=flat,
                  device="cpu")
     assert r.engine == "packet"
@@ -114,7 +143,7 @@ def test_renderer_needs_an_explicit_device(soup_small):
 
 def test_pick_layout_matches_reference(conference):
     scene, flat = conference
-    n_refs, avg_leaf, tpr, npr = port.pick_layout(flat)
+    n_refs, avg_leaf, tpr, npr = registry.pick_layout(flat)
     assert n_refs == scene.num_tris and avg_leaf >= 6.0
     assert (tpr, npr) == (12, 1)   # fat leaves, small node table
 
@@ -135,8 +164,8 @@ def test_trace_batched_chunks_equal_one_batch(soup_small, rng):
     r = Renderer(soup_small, BuildConfig(builder="binned_sah"),
                  RenderConfig(), device="cpu")
     batch = RayBatch(*(torch.from_numpy(a) for a in random_rays(rng, 500)))
-    whole = port._trace_batched(r._tracer, batch, 1 << 20, False)
-    chunked = port._trace_batched(r._tracer, batch, 128, False)
+    whole = port._trace_batched(r.tracer.trace, batch, 1 << 20, False)
+    chunked = port._trace_batched(r.tracer.trace, batch, 128, False)
     for a, b in zip(whole, chunked):
         assert torch.equal(a, b)
 
@@ -185,11 +214,10 @@ def test_render_binraster_matches_jax(monkeypatch):
     entries; the port reads no tuned.json): hit ids exactly, the image
     within atol 1e-6."""
     from ntrace_tpu.render import renderer as jax_renderer
-    from ntrace_tpu_torch.trace import binraster as br
 
     monkeypatch.setattr(jax_renderer, "_load_tuned", lambda: {
-        "br_k": port.V1_K_SLOTS, "br_k2": port.V1_K2_SLOTS,
-        "br_unroll": port.V1_UNROLL, "br_ez": port.V1_EZ_CHUNK})
+        "br_k": br.V1_K_SLOTS, "br_k2": br.V1_K2_SLOTS,
+        "br_unroll": br.V1_UNROLL, "br_ez": br.V1_EZ_CHUNK})
     scene = get_scene("conference", n_tris=2000)
     build = BuildConfig(builder="binned_sah")
     flat = build_accel(scene, build)
@@ -202,9 +230,9 @@ def test_render_binraster_matches_jax(monkeypatch):
     launches = br.trace_binraster_rows.launches
     got = r.render(cam)
     assert br.trace_binraster_rows.launches == launches   # the CPU: twin
-    assert r.primary_engine == "binraster" and r._br is not None
+    assert isinstance(r.screen, br.V1Engine) and r.screen.armed
     for k in ("p_max", "g_max", "g2_max", "nb"):
-        assert r._br[k] == jr._br[k], k
+        assert r.screen.sizes[k] == jr._br[k], k
     np.testing.assert_array_equal(got.hit_tri, ref.hit_tri)
     np.testing.assert_allclose(got.image, ref.image, rtol=0, atol=1e-6)
     assert (got.hit_tri >= 0).mean() > 0.5 and not (got.hit_tri == -2).any()

@@ -381,7 +381,7 @@ def test_reference_batch_gives_reference_hits(conference, mode):
                                  any_hit)[0])
     rays = [torch.from_numpy(np.array(a)) for a in (sec.orig, sec.dirn,
                                                     sec.tmin, sec.tmax)]
-    got = r._tracer(*rays, any_hit)[0].numpy()
+    got = r.tracer.trace(*rays, any_hit)[0].numpy()
     if any_hit:
         np.testing.assert_array_equal(got >= 0, want >= 0)
         assert 0 < (want >= 0).mean() < 1
