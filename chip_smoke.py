@@ -48,13 +48,15 @@ Phases, each printed as it completes:
      ops and directions, on the hairball build's two ANSV inputs
      (31, 2,900,402) and its kept neighbours (two (1, 2,900,402) scans,
      bit-equal to torch.cummax / cummin); the conference build on the card
-     bit-equal to the
-     same build on the CPU; structural checks of the hairball build; the
-     LBVH frame (render() through the row-scan and packet kernels) against
-     the golden and brute-force oracles and against phase 4's frame on
-     every ray; times of the build at both sizes, of each row-scan launch
-     (the (31, n) class scans and the (1, n) kept-neighbour scans) beside
-     torch.cummax and the plain version, and of the frame's trace
+     bit-equal to the same build on the CPU; structural checks of the
+     hairball build; the LBVH frame (render() through the row-scan,
+     child-box and packet kernels) against the golden and brute-force
+     oracles and against phase 4's frame on every ray; times of the build
+     at both sizes, of each row-scan launch (the (31, n) class scans and
+     the (1, n) kept-neighbour scans) beside torch.cummax and the plain
+     version, of the child-box kernel (csrc/child_boxes.cu) on the build's
+     own queries, bit-equal to child_boxes_ref, beside the plain version,
+     and of the frame's trace
   8. the secondary modes on phase 4's renderer (engine packet): render()
      for shadow, ao (3,145,728 rays at samples=4), diffuse and path
      (bounces=2), each pass recorded; any-hit passes tri >= 0 against
@@ -187,6 +189,7 @@ import statistics
 import sys
 import time
 from contextlib import contextmanager
+from unittest import mock
 
 import numpy as np
 import torch
@@ -202,6 +205,7 @@ from ntrace_tpu_torch.host import (BuildConfig, RenderConfig,
                                    pack_bvh, pack_wide_bvh, trace_cpu_golden)
 from ntrace_tpu_torch.host.bvh.sbvh import sbvh_impl_tag
 from ntrace_tpu_torch.kernels.build import build
+from ntrace_tpu_torch.ops.boxes import child_boxes, child_boxes_ref
 from ntrace_tpu_torch.ops.gather import (GatherTable, paged_gather_bytes,
                                          paged_gather_bytes_ref)
 from ntrace_tpu_torch.ops.pscan import OPS, row_scan_i32, row_scan_i32_ref
@@ -240,6 +244,7 @@ VISITS_REPLACES = "ntrace_tpu/trace/binraster_dense.py:1270"
 SCAN_SOURCE = "ntrace_tpu_torch/csrc/row_scan.cu"
 SCAN_REPLACES = "ntrace_tpu/ops/pscan.py:33"
 SECONDARY_SOURCE = "ntrace_tpu_torch/csrc/secondary_rays.cu"
+BOXES_SOURCE = "ntrace_tpu_torch/csrc/child_boxes.cu"
 # render() modes whose secondary rays come from csrc/secondary_rays.cu, one
 # launch a frame.
 KERNEL_RAYGEN_MODES = ("ao", "diffuse")
@@ -909,6 +914,7 @@ def phase_lbvh_frame(r, batch):
     camera = default_camera("conference")
     sah = r.render(camera)
     row_scan_i32.launches = 0
+    child_boxes.launches = 0
     trace_packet.launches = 0
     rl = Renderer(r.scene, LBVH_CFG, RenderConfig(width=W, height=H,
                                                   mode="primary",
@@ -917,11 +923,13 @@ def phase_lbvh_frame(r, batch):
     with tracing():
         res = rl.render(camera)
     counts = {"row_scan": row_scan_i32.launches,
+              "child_boxes": child_boxes.launches,
               "packet": trace_packet.launches}
     if rl.flat is not None or rl.tables.device.type != r.device.type:
         raise AssertionError("builder='lbvh' did not build its tables on "
                              "the card")
-    if counts["row_scan"] < 4 or counts["packet"] < 1:
+    if counts["row_scan"] < 4 or counts["child_boxes"] != 1 \
+            or counts["packet"] < 1:
         raise AssertionError(f"the LBVH path skipped a kernel: {counts}")
     img = res.image
     if img.shape != (H, W, 3) or not np.isfinite(img).all() \
@@ -959,7 +967,8 @@ def phase_lbvh_timing(rl, batch, conf_dev, hair_dev, smi):
     both sizes (with its node_count read), each row-scan launch on the
     build's real ANSV inputs beside torch.cummax and the plain version,
     the two (1, n) kept-neighbour scans on the build's own mask beside the
-    plain version (torch's one-block scan), and the LBVH frame's
+    plain version (torch's one-block scan), the child boxes on the build's
+    own queries beside the plain version, and the LBVH frame's
     trace_primary."""
     ml = LBVH_CFG.max_leaf_size
 
@@ -1016,6 +1025,7 @@ def phase_lbvh_timing(rl, batch, conf_dev, hair_dev, smi):
             f"takes {t['max'] / b:.2f}x the bound")
         del D, xmax, xmin
         t["row"] = phase_kept_scans(size, args, ml, med, smi)
+        t["boxes"] = phase_child_boxes(size, args, ml, med, smi)
         out[size] = t
     rays = (batch.orig, batch.dirn, batch.tmin, batch.tmax)
     out["trace"] = med("LBVH frame: Renderer.trace_primary",
@@ -1072,6 +1082,45 @@ def phase_kept_scans(size, args, ml, med, smi):
     return t
 
 
+def phase_child_boxes(size, args, ml, med, smi):
+    """The build's child boxes on its own queries (recorded from one
+    build): the kernel bit-equal to the plain version on the card, then
+    both timed (CUDA events around the wrapper, medians of 20) and the
+    profiler's device time of the kernel's two passes, beside the bound
+    (the sorted boxes read once, the range ends of the nodes below the
+    count, the boxes written)."""
+    with mock.patch.object(lbvh, "child_boxes", wraps=child_boxes) as spy:
+        lbvh.lbvh_device_fast(*args, max_leaf=ml, emit="packed")
+    q = spy.call_args.args
+    slo, a, count = q[0], q[2], int(q[5])
+    n, m = slo.shape[0], a.shape[0]
+    got, want = child_boxes(*q), child_boxes_ref(*q)
+    if not _bit_equal(got, want):
+        raise AssertionError(f"{size} child boxes: the kernel differs from "
+                             "the plain version on "
+                             f"{int((got != want).any(1).sum())} nodes")
+    t = {"bound": bound(24 * n + 12 * count + 48 * m, 0)}
+    t["kernel"] = med(f"{size} child_boxes ({count} of {m} nodes, {n} "
+                      "rows)", lambda: child_boxes(*q), iters=20)
+    t["plain"] = med(f"{size} child_boxes_ref", lambda: child_boxes_ref(*q),
+                     iters=20)
+    reps = 20
+    dev = profile_once(f"[7] profile of {reps} {size} child_boxes launches",
+                       lambda: [child_boxes(*q) for _ in range(reps)], smi,
+                       top=4)
+    passes = {p: sum(ms for k, ms, _ in dev if p in k) / reps
+              for p in ("box_levels", "box_query")}
+    t["device"] = sum(passes.values()) or None
+    b, by = t["bound"]
+    log(f"[7] {size} child boxes bit-equal to child_boxes_ref; kernel "
+        f"{t['kernel']:.4f} ms (device "
+        + (f"{t['device']:.4f}: levels {passes['box_levels']:.4f}, query "
+           f"{passes['box_query']:.4f}" if t["device"] else "not measured")
+        + f"), plain {t['plain']:.4f}; bound {b:.4f} ms by {by} "
+        f"({(24 * n + 12 * count + 48 * m) / 1e6:.1f} MB)")
+    return t
+
+
 # -- phases 8-10: the secondary passes -------------------------------------
 
 PASSES = {"primary": ("primary",),
@@ -1084,6 +1133,7 @@ def reset_counts():
     for kernel, *_ in ALL_ENGINES.values():
         kernel.launches = 0
     row_scan_i32.launches = 0
+    child_boxes.launches = 0
     paged_gather_bytes.launches = 0
     raygen.secondary_rays.launches = 0
 
@@ -1091,6 +1141,7 @@ def reset_counts():
 def launch_counts() -> dict:
     return {**{name: e[0].launches for name, e in ALL_ENGINES.items()},
             "row_scan": row_scan_i32.launches,
+            "child_boxes": child_boxes.launches,
             "gather": paged_gather_bytes.launches,
             "secondary_rays": raygen.secondary_rays.launches}
 
@@ -1543,7 +1594,8 @@ def phase_hairball_ao(device, hair, smi, width=WIDTH, height=HEIGHT):
         res = rh.render(camera)
     counts = launch_counts()
     if rh.flat is not None or counts["row_scan"] < 4 \
-            or counts["packet"] != 2 or len(passes) != 2:
+            or counts["child_boxes"] != 1 or counts["packet"] != 2 \
+            or len(passes) != 2:
         raise AssertionError(f"hairball AO skipped a kernel: {counts}")
     check_raygen_launches("[10] hairball AO", "ao", counts)
     check_image("[10] hairball AO", res.image, width, height)
@@ -2930,6 +2982,13 @@ def main():
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound"][0], "bound_by": row["bound"][1],
             "library_ms": None})
+    boxes = lbvh_ms["hairball"]["boxes"]
+    kernels.append({
+        "name": "child_boxes", "route": "cuda", "source": BOXES_SOURCE,
+        "replaces": None, "launches": lbvh_counts["child_boxes"],
+        "max_abs_err": 0.0, "ms": boxes["kernel"],
+        "plain_ms": boxes["plain"], "bound_ms": boxes["bound"][0],
+        "bound_by": boxes["bound"][1], "library_ms": None})
     kernels.append({
         "name": "secondary_rays", "route": "cuda",
         "source": SECONDARY_SOURCE, "replaces": None,

@@ -16,12 +16,14 @@ reference's to the bit:
   - pruning of subtrees with at most max_leaf triangles (and of duplicate-
     code splits), the kept boundaries around each row (`kept_neighbours`:
     a (1, n) forward cummax and reverse cummin through the same row scan,
-    4 launches a build in all), the leaf runs, the sparse range-min table
-    for the child boxes, compaction to the kept nodes, the child-to-parent
-    link scatter, and either the packet kernel's tables (emit="packed":
-    node records and dense triangle slots, root at row 0, links as float
-    values) or the FlatBVH arrays (emit="flat": Woop rows with leaf-end
-    sentinels).
+    4 launches a build in all), the leaf runs, compaction to the kept
+    nodes, the child boxes (`ops/boxes.py:child_boxes`: range minima over
+    the sorted boxes, the CUDA kernel csrc/child_boxes.cu on a CUDA tensor
+    and its plain version on the CPU, one launch a build), the child-to-
+    parent link scatter, and either the packet kernel's tables
+    (emit="packed": node records and dense triangle slots, root at row 0,
+    links as float values) or the FlatBVH arrays (emit="flat": Woop rows
+    with leaf-end sentinels).
 
 Where torch differs from lax, the port keeps the reference's result:
   - `clz` is ops/morton.py:clz32; the logical right shifts mask the
@@ -34,16 +36,18 @@ Where torch differs from lax, the port keeps the reference's result:
     targets are unique, so the port scatters them unsorted;
   - mode="drop" scatters write their dropped updates to one spare slot
     past the end, which is then cut off;
-  - the child boxes read the sparse table at (level, position) directly,
-    which selects the same values as the reference's position-major copy
-    and its level-group fold;
+  - the child boxes are range minima like the reference's sparse-table
+    reads, taken as integer minima of ordered keys (ops/boxes.py): a
+    minimum is exact, and where a lane holds both zeros the key order
+    gives lax.min's -0.0 (lo) and +0.0 (hi);
   - the 31-way select chains are one gather on the class index.
 `lbvh_device` keeps the reference's sweep level by level: a Python loop
 over the 30 levels for the fori_loop, its reverse position-key cummins
 through `row_scan_i32` on (1, n) views (2 launches a level, 61 a build,
-62 in forest mode), its unique-target scatters as index writes and its
-mode="drop" scatters through `_set_drop`; all of its outputs but the Woop
-rows are bit-equal to the reference's.
+62 in forest mode), its child boxes through `child_boxes` (one launch),
+its unique-target scatters as index writes and its mode="drop" scatters
+through `_set_drop`; all of its outputs but the Woop rows are bit-equal to
+the reference's.
 In both flat emissions the Woop rows are f32 cross products written out as
 separate multiplies and subtractions; XLA on the CPU contracts them into
 fused multiply-adds, so the rows agree with the JAX build within a few ulp
@@ -63,6 +67,7 @@ import torch
 
 from ntrace_tpu_torch.host import (BuildConfig, FlatBVH, PackedBVH, Scene,
                                    build_median_bvh, flatten_bvh, pack_bvh)
+from ntrace_tpu_torch.ops.boxes import child_boxes
 from ntrace_tpu_torch.ops.morton import clz32, morton_codes_3d
 from ntrace_tpu_torch.ops.pscan import row_scan_i32
 from ntrace_tpu_torch.utils import timing
@@ -241,20 +246,9 @@ def _next_boundary(boundary: torch.Tensor, iota: torch.Tensor):
     return _next_min(torch.cat([bkey[1:], bkey.new_full((1,), n)]))
 
 
-def _range_table(slo: torch.Tensor, shi: torch.Tensor):
-    """The sparse range-min table over the sorted boxes, (L * 6 * n,) as
-    (level, lane, row) of [lo, -hi], and its top level logn."""
-    n = slo.shape[0]
-    levels = [torch.cat([slo.t(), -shi.t()], dim=0)]
-    logn = max(int(np.ceil(np.log2(max(n, 2)))), 1)
-    for k in range(1, logn + 1):
-        half = 1 << (k - 1)
-        prev = levels[-1]
-        pad = torch.full((6, min(half, n)), np.inf, dtype=torch.float32,
-                         device=slo.device)
-        levels.append(torch.minimum(
-            prev, torch.cat([prev[:, half:], pad], dim=1)))
-    return torch.stack(levels).reshape(-1), logn
+def _split_boxes(boxes: torch.Tensor) -> tuple:
+    """(lo0, hi0, lo1, hi1), each (m, 3), of child_boxes' (m, 12) rows."""
+    return boxes[:, 0:3], boxes[:, 3:6], boxes[:, 6:9], boxes[:, 9:12]
 
 
 def lbvh_device(tri_lo, tri_hi, tri_verts, scene_lo, scene_hi,
@@ -378,24 +372,9 @@ def lbvh_device(tri_lo, tri_hi, tri_verts, scene_lo, scene_hi,
     cluster_roots = _mset(cluster_roots, -parent_slot - 2, ~ridx, resid_m)
     leaf_next = leaf_next + rsum[-1]
 
-    # Child boxes from the sparse table: two reads per child.
-    table, logn = _range_table(slo, shi)
-    lanes6 = torch.arange(6, device=dev)
-
-    def range_bounds(a, b):
-        """min over sorted rows [a, b): (lo (m, 3), hi (m, 3))."""
-        k = torch.clamp(31 - clz32(torch.clamp(b - a, min=1)), max=logn)
-        k6 = k.long()[:, None] * 6 + lanes6
-
-        def row(pos):
-            return table[k6 * n + pos.long()[:, None]]
-
-        m = torch.minimum(row(a), row(torch.maximum(
-            b - (torch.ones_like(k) << k), a)))
-        return m[:, 0:3], -m[:, 3:6]
-
-    lo0, hi0 = range_bounds(rng_s, rng_p)
-    lo1, hi1 = range_bounds(rng_p, rng_e)
+    # Child boxes: range minima over the sorted boxes (ops/boxes.py).
+    lo0, hi0, lo1, hi1 = _split_boxes(
+        child_boxes(slo, shi, rng_s, rng_p, rng_e, node_next))
 
     # Woop offsets of the leaves and the final child encoding.
     is_leaf_slot = iota < leaf_next
@@ -492,17 +471,6 @@ def lbvh_device_fast(tri_lo, tri_hi, tri_verts, scene_lo, scene_hi,
     lleaf = pks <= a      # no kept boundary strictly inside (a, i)
     rleaf = nks >= b      # no kept boundary strictly inside (i, b)
 
-    table, logn = _range_table(slo, shi)
-    lanes6 = torch.arange(6, device=dev)
-
-    def probe(k, pos):
-        """table[k, :, pos] for each compact node: (m, 6)."""
-        return table[(k.long()[:, None] * 6 + lanes6) * n
-                     + pos.long()[:, None]]
-
-    def k_of(sz):
-        return torch.clamp(31 - clz32(torch.clamp(sz, min=1)), max=logn)
-
     # Compaction to the kept nodes, kept rows first in row order.
     if compact_cap is None:
         ncap = min(n, int(n * 3.2 / (max_leaf + 4)) + 256)
@@ -520,14 +488,8 @@ def lbvh_device_fast(tri_lo, tri_hi, tri_verts, scene_lo, scene_hi,
     parent_c, side_c, root_c = parent[ci], side[ci], root_f[ci]
     ic = _i32(ncap, dev)
     cvalid = ic < node_count
-    k0 = k_of(cidx - a_c)
-    k1 = k_of(b_c - cidx)
-    one = torch.ones_like(k0)
-    m0 = torch.minimum(probe(k0, a_c.clamp(0, n - 1)),
-                       probe(k0, (cidx - (one << k0)).clamp(0, n - 1)))
-    m1 = torch.minimum(probe(k1, cidx),
-                       probe(k1, (b_c - (one << k1)).clamp(0, n - 1)))
-    del table
+    lo0, hi0, lo1, hi1 = _split_boxes(
+        child_boxes(slo, shi, a_c, cidx, b_c, node_count))
     dst_a = dst[a_c.clamp(0, n - 1).long()]   # left-child run offsets
 
     if emit == "packed":
@@ -545,8 +507,6 @@ def lbvh_device_fast(tri_lo, tri_hi, tri_verts, scene_lo, scene_hi,
     pcomp = kposi[parent_c.clamp(0, n - 1).long()]
     flat_t = torch.where(cvalid & ~root_c, pcomp * 2 + side_c, 2 * ncap)
     enc = _set_drop(enc.reshape(-1), flat_t, ic).reshape(ncap, 2)
-    lo0, hi0 = m0[:, 0:3], -m0[:, 3:6]
-    lo1, hi1 = m1[:, 0:3], -m1[:, 3:6]
     rootc = torch.argmax((cvalid & root_c).to(torch.int32)).to(torch.int32)
 
     if emit == "packed":

@@ -103,6 +103,13 @@ SIGNATURES = {
          ctypes.c_longlong, _I, ctypes.c_float, ctypes.c_float, _I, _P, _P,
          _P, _P, _P, _P, _P],
     ),
+    # child_boxes.cu: slo, shi, a, i, b, count, out, scratch, its length,
+    # n, m, the stream.
+    "ntrace_child_boxes_scratch": (ctypes.c_int, [_I]),
+    "ntrace_child_boxes": (
+        ctypes.c_int,
+        [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _P],
+    ),
     "ntrace_row_scan_tile": (ctypes.c_int, []),
     "ntrace_row_scan_i32": (
         ctypes.c_int,

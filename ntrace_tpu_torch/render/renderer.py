@@ -40,6 +40,7 @@ from ntrace_tpu_torch.bvh.lbvh import (build_lbvh_flat, build_lbvh_packed,
 from ntrace_tpu_torch.host import (BuildConfig, Camera, FlatBVH, RenderConfig,
                                    Scene, build_median_bvh, build_sbvh,
                                    flatten_bvh)
+from ntrace_tpu_torch.ops.boxes import child_boxes
 from ntrace_tpu_torch.ops.pscan import row_scan_i32
 from ntrace_tpu_torch.ray import raygen, rng
 from ntrace_tpu_torch.ray.pixeltable import pixel_table
@@ -245,12 +246,13 @@ class Renderer:
         carries the scene box and the tables' check. A tree with no
         internal node takes the median route on the host, as
         build_lbvh_packed does. Counters <stage>_tris, <stage>_nodes,
-        <stage>_retries (the compact_cap retry) and <stage>_scan_launches
+        <stage>_retries (the compact_cap retry), <stage>_scan_launches
         (row-scan kernel launches: 4 a try on a CUDA device, 0 on the
-        CPU). Returns (packed, tables)."""
+        CPU) and <stage>_box_launches (child-box kernel launches: 1 a try
+        on a CUDA device, 0 on the CPU). Returns (packed, tables)."""
         tpr, npr = 12, 1
         n = self._indices.shape[0]
-        scans = row_scan_i32.launches
+        scans, boxes = row_scan_i32.launches, child_boxes.launches
         with timer.stage(stage):
             with timing.span(f"ntrace.{stage}.inputs"):
                 args = inputs_from(positions, self._indices)
@@ -282,6 +284,7 @@ class Renderer:
         timer.count(f"{stage}_nodes", packed.num_nodes)
         timer.count(f"{stage}_retries", retries)
         timer.count(f"{stage}_scan_launches", row_scan_i32.launches - scans)
+        timer.count(f"{stage}_box_launches", child_boxes.launches - boxes)
         return packed, tables
 
     def update_positions(self, positions: torch.Tensor) -> dict:
@@ -294,8 +297,8 @@ class Renderer:
         "auto" or "packet", no `flat`); any other raises
         NotImplementedError. Returns the call's stats: counters
         rebuild_tris, rebuild_nodes, rebuild_retries, rebuild_scan_launches,
-        copies and copy_bytes, and while tracing is on the stage times
-        rebuild and host_rebuild."""
+        rebuild_box_launches, copies and copy_bytes, and while tracing is
+        on the stage times rebuild and host_rebuild."""
         if self._indices is None:
             raise NotImplementedError(
                 "update_positions rebuilds the direct LBVH route only "

@@ -15,7 +15,9 @@ the cell `<config>.ao_rebuild`. For each pose k, with camera k:
     pixel_mismatch and pixel_gap_mean must be 0;
   - the build's kept neighbours of the pose (bvh/lbvh.py:kept_neighbours)
     through the row scan must be bit-equal to its plain version's,
-    torch.cummax / cummin (`kept_scans`).
+    torch.cummax / cummin (`kept_scans`), and its child boxes through the
+    kernel (ops/boxes.py:child_boxes) to the plain version's on the
+    build's own queries (`child_boxes`).
 One JSON line a pose, with the rebuild's stats and times (update_positions
 alone and the fresh constructor, host clock, synchronised); the last line
 is {"ok": ...}. Exits 1 when a pose fails. A CPU device runs the same
@@ -30,6 +32,7 @@ import json
 import os
 import sys
 from time import perf_counter
+from unittest import mock
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if ROOT not in sys.path:
@@ -43,6 +46,8 @@ from benchmark.lib.cell import Cell  # noqa: E402
 from benchmark.traffic import rebuild_frame as kind  # noqa: E402
 from ntrace_tpu_torch.bvh import lbvh  # noqa: E402
 from ntrace_tpu_torch.host import Scene  # noqa: E402
+from ntrace_tpu_torch.ops.boxes import (child_boxes,  # noqa: E402
+                                        child_boxes_ref)
 from ntrace_tpu_torch.ops.pscan import row_scan_i32_ref  # noqa: E402
 
 
@@ -57,14 +62,22 @@ def synced(device, fn):
     return out, perf_counter() - t0
 
 
-def kept_scans_equal(positions, indices, max_leaf) -> bool:
-    """The pose's kept neighbours through the row scan, bit-equal to those
-    of the plain version (torch.cummax / cummin)."""
-    kept = lbvh.lbvh_device_fast(*lbvh.inputs_from(positions, indices),
-                                 max_leaf=max_leaf, emit="packed")["kept"]
+def kernels_equal(positions, indices, max_leaf) -> dict:
+    """One build of the pose: its kept neighbours through the row scan,
+    bit-equal to those of the plain version (torch.cummax / cummin), and
+    its child boxes through the kernel, bit-equal to the plain version's
+    on the queries the build made."""
+    with mock.patch.object(lbvh, "child_boxes", wraps=child_boxes) as spy:
+        kept = lbvh.lbvh_device_fast(*lbvh.inputs_from(positions, indices),
+                                     max_leaf=max_leaf,
+                                     emit="packed")["kept"]
     got = lbvh.kept_neighbours(kept)
     want = lbvh.kept_neighbours(kept, row_scan_i32_ref)
-    return all(torch.equal(a, b) for a, b in zip(got, want))
+    q = spy.call_args.args
+    return {"kept_scans": all(torch.equal(a, b) for a, b in zip(got, want)),
+            "child_boxes": torch.equal(
+                child_boxes(*q).view(torch.int32),
+                child_boxes_ref(*q).view(torch.int32))}
 
 
 def main(argv=None) -> int:
@@ -104,8 +117,7 @@ def main(argv=None) -> int:
             "image": bool(np.array_equal(got.image, want.image)),
             "hit_tri": bool(np.array_equal(got.hit_tri, want.hit_tri)),
             "hit_t": bool(np.array_equal(got.hit_t, want.hit_t)),
-            "kept_scans": kept_scans_equal(cell.buf, indices,
-                                           r.build_cfg.max_leaf_size)}
+            **kernels_equal(cell.buf, indices, r.build_cfg.max_leaf_size)}
         del fresh
         cell.images = [None] * n
         cell.images[k] = got.image

@@ -481,6 +481,7 @@ def test_c_entry_points_match_ctypes_signatures():
     NTRACE_TRAVERSAL_ENTRY(name, kernel), whose one signature counts for
     each name."""
     assert [p.name for p in kbuild.sources()] == ["binraster_trace.cu",
+                                                  "child_boxes.cu",
                                                   "dense_trace.cu",
                                                   "dense_visits.cu",
                                                   "gather.cu",

@@ -38,6 +38,7 @@ PORT_MODULES = (
     "ntrace_tpu_torch.bvh.lbvh",
     "ntrace_tpu_torch.bvh.hlbvh",
     "ntrace_tpu_torch.ops.pscan",
+    "ntrace_tpu_torch.ops.boxes",
     "ntrace_tpu_torch.ops.gather",
     "ntrace_tpu_torch.tables",
     "ntrace_tpu_torch.kernels.build",

@@ -36,6 +36,7 @@ from ntrace_tpu_torch import host
 from ntrace_tpu_torch.bvh import lbvh
 from ntrace_tpu_torch.host.scenes import make_single_triangle
 from ntrace_tpu_torch.ops import morton, pscan
+from ntrace_tpu_torch.ops.boxes import child_boxes
 from ntrace_tpu_torch.render.renderer import Renderer, build_accel
 from ntrace_tpu_torch.tables import tables_from_device
 
@@ -53,6 +54,20 @@ def dup_soup():
         tv[k * 120:(k + 1) * 120] = tv[k * 120]
     idx = np.arange(3000, dtype=np.int32).reshape(-1, 3)
     return RefScene(positions=tv.reshape(-1, 3), indices=idx, name="dupes")
+
+
+def signed_zero_soup():
+    """2,000 triangles whose box lo.x and hi.y are each +0.0 or -0.0 (one
+    vertex a triangle on them, the others off): most child boxes hold both
+    zeros in those lanes."""
+    g = np.random.default_rng(6)
+    tv = g.uniform(-1, 1, size=(2000, 3, 3)).astype(np.float32)
+    tv[:, 1:, 0] = g.uniform(0.01, 1, size=(2000, 2))
+    tv[:, 1:, 1] = g.uniform(-1, -0.01, size=(2000, 2))
+    tv[:, 0, :2] = np.where(g.random((2000, 2)) < 0.5, np.float32(0.0),
+                            np.float32(-0.0))
+    idx = np.arange(6000, dtype=np.int32).reshape(-1, 3)
+    return RefScene(positions=tv.reshape(-1, 3), indices=idx, name="zeros")
 
 
 SCENES = {
@@ -196,6 +211,23 @@ def test_packed_emission_bit_equal(name, max_leaf):
     assert int(ref["cap"]) == int(got["cap"])
     assert int(got["node_count"]) > 0
     assert_bit_equal(ref, got, PACKED_KEYS)
+
+
+@pytest.mark.parametrize("max_leaf", [4, 32])
+def test_signed_zero_boxes_bit_equal(max_leaf):
+    """Child boxes whose lanes hold both zeros take lax.min's signs, -0.0
+    for lo and +0.0 for hi: the packed and flat emissions bit-equal to the
+    JAX build's."""
+    args = _args(signed_zero_soup())
+    assert (np.signbit(args[0][:, 0]).mean(), np.signbit(args[1][:, 1])
+            .mean()) != (0, 0)
+    kw = dict(max_leaf=max_leaf, emit="packed")
+    ref, got = _jax(args, **kw), _port(args, **kw)
+    assert_bit_equal(ref, got, PACKED_KEYS)
+    kw["emit"] = "flat"
+    assert_bit_equal(_jax(args, **kw), _port(args, **kw),
+                     ("nodes", "tri_index", "node_count", "leaf_count",
+                      "root"))
 
 
 def test_ansv_scans_through_either_scan():
@@ -468,8 +500,10 @@ def test_lbvh_build_on_cuda_equals_cpu():
     t = [torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()
          for a in args]
     before = pscan.row_scan_i32.launches
+    boxes_before = child_boxes.launches
     out = lbvh.lbvh_device_fast(*t, max_leaf=32, emit="packed")
     assert pscan.row_scan_i32.launches == before + 4
+    assert child_boxes.launches == boxes_before + 1
     gpu = {k: v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
            for k, v in out.items()}
     assert_bit_equal(cpu, gpu, PACKED_KEYS)

@@ -225,6 +225,7 @@ def test_library_path_keyed_by_sources():
     assert path.parent == kbuild.BUILD_DIR
     assert path == kbuild.library_path()
     assert [p.name for p in kbuild.sources()] == ["binraster_trace.cu",
+                                                  "child_boxes.cu",
                                                   "dense_trace.cu",
                                                   "dense_visits.cu",
                                                   "gather.cu",

@@ -41,7 +41,8 @@ CAMERA = program.camera(VIEW)
 # the next.
 POSES = (1, 6, 11, 1)
 REBUILD_KEYS = {"rebuild_tris", "rebuild_nodes", "rebuild_retries",
-                "rebuild_scan_launches", "copies", "copy_bytes"}
+                "rebuild_scan_launches", "rebuild_box_launches", "copies",
+                "copy_bytes"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -82,13 +83,16 @@ def test_rebuild_equals_a_fresh_build(hair, fresh, mode):
     scene, wind = hair
     r = Renderer(scene, LBVH, _cfg(mode), device="cpu")
     assert r.timer.counts["build_scan_launches"] == 0
+    assert r.timer.counts["build_box_launches"] == 0
     nodes = []
     for k in POSES:
         st = r.update_positions(torch.from_numpy(wind.pose(k)))
         assert set(st) == REBUILD_KEYS
-        # The CPU takes the row scan's plain version: no kernel launch.
+        # The CPU takes the row scan's and the child boxes' plain
+        # versions: no kernel launch.
         assert (st["rebuild_tris"], st["rebuild_retries"],
-                st["rebuild_scan_launches"]) == (scene.num_tris, 0, 0)
+                st["rebuild_scan_launches"],
+                st["rebuild_box_launches"]) == (scene.num_tris, 0, 0, 0)
         f = fresh[k, mode]
         assert st["rebuild_nodes"] == f.tables.num_nodes
         assert torch.equal(r.tables.nodes8, f.tables.nodes8)
@@ -192,18 +196,21 @@ def test_compact_cap_retry(hair):
 
 @pytest.mark.cuda
 def test_rebuild_counts_its_scan_launches_on_cuda(hair):
-    """On the card each try of the build launches the row scan 4 times:
-    the two class scans and the two kept-neighbour scans."""
+    """On the card each try of the build launches the row scan 4 times
+    (the two class scans and the two kept-neighbour scans) and the
+    child-box kernel once."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     scene, wind = hair
     dev = torch.device("cuda", 0)
     r = Renderer(scene, LBVH, _cfg("ao"), device=dev)
     assert r.timer.counts["build_scan_launches"] == 4
+    assert r.timer.counts["build_box_launches"] == 1
     for k in POSES:
         st = r.update_positions(torch.from_numpy(wind.pose(k)).to(dev))
         assert st["rebuild_retries"] == 0
         assert st["rebuild_scan_launches"] == 4
+        assert st["rebuild_box_launches"] == 1
 
 
 @pytest.fixture(scope="module")
