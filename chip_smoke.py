@@ -165,13 +165,19 @@ Phases, each printed as it completes:
      card (bvh/lbvh.py:lbvh_device, its cummins through csrc/row_scan.cu)
      bit-equal to the same sweep on the CPU (Woop rows within
      WOOP_ULPS), at least 2 clusters and the splice taken (no fallback),
-     the tree checked; Renderer(builder="hlbvh") then render() of diffuse
-     and AO, row-scan and packet launches counted, every pass through
-     check_pass; the primary frame against the binned-SAH tree's, every
-     difference decided by brute_force_mt; times of the build (device
-     sweep, host top tree and splice, host pack and upload), of each
-     render's stages and of the packet kernel on each pass beside its
-     bound
+     the tree checked (the host route's FlatBVH); Renderer(builder=
+     "hlbvh") then builds on the card (the device route: forest in one
+     pass, one read, native top tree, one upload, splice) with no
+     fallback, its tables the host route's tree packed one node a row
+     (tables.py:tree_form) and its triangle rows bit-equal; render() of
+     diffuse and AO through it and through the host route's renderer,
+     images and hits bit-equal, row-scan, child-box and packet launches
+     counted, every pass through check_pass; the primary frame against
+     the binned-SAH tree's, every difference decided by brute_force_mt;
+     times of the build (device sweep, host top tree and splice, host
+     pack and upload, build_accel, and update_positions with its traced
+     parts), of each render's stages and of the packet kernel on each
+     pass beside its bound
 Then one JSON line of per-kernel results (with each kernel's bound from
 this run's work), the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises and the script
@@ -214,7 +220,7 @@ from ntrace_tpu_torch.ray.pixeltable import pixel_table
 from ntrace_tpu_torch.ray.raybatch import DEAD_KEY, RayBatch, sort_by_key
 from ntrace_tpu_torch.render.renderer import Renderer, build_accel
 from ntrace_tpu_torch.tables import (WideTables, tables_from_packed,
-                                     tables_from_wide)
+                                     tables_from_wide, tree_form)
 from ntrace_tpu_torch.trace import binraster as br
 from ntrace_tpu_torch.trace import binraster_dense as bd
 from ntrace_tpu_torch.trace import packet_batch, registry
@@ -2663,20 +2669,22 @@ def phase_hlbvh_build(device, scene):
 def phase_fairy(device, n_tris=FAIRY_TRIS, width=WIDTH, height=HEIGHT):
     """Phase 15: BASELINE config #3. The build checks, then the main path
     with every count set to 0 just before and read just after:
-    Renderer(builder="hlbvh") builds on the card, render(diffuse) and
-    render(ao) trace through the packet kernel; every pass through
-    check_pass; the primary frame against the binned-SAH tree's. Returns
-    the renderer and its passes by mode."""
+    Renderer(builder="hlbvh", engine "auto") builds on the card (the
+    device route), render(diffuse) and render(ao) trace through the
+    packet kernel; its tables hold the host route's tree, and its frames
+    equal the host route renderer's; every pass through check_pass; the
+    primary frame against the binned-SAH tree's. Returns the renderer,
+    the host route's FlatBVH and the passes by mode."""
     t0 = time.perf_counter()
     scene = get_scene("fairy", n_tris=n_tris)
     log(f"[15] scene fairy: {scene.num_tris} tris in "
         f"{time.perf_counter() - t0:.1f} s")
-    scans, flat = phase_hlbvh_build(device, scene)
+    _, flat = phase_hlbvh_build(device, scene)
     camera = default_camera("fairy")
+    rc = RenderConfig(width=width, height=height, engine="auto")
 
     reset_counts()
-    rh = Renderer(scene, HLBVH_CFG, RenderConfig(width=width, height=height),
-                  device=device)
+    rh = Renderer(scene, HLBVH_CFG, rc, device=device)
     passes = {}
     for mode in ("diffuse", "ao"):
         with recorded(rh) as got, tracing():
@@ -2684,15 +2692,38 @@ def phase_fairy(device, n_tris=FAIRY_TRIS, width=WIDTH, height=HEIGHT):
         passes[mode] = (res, got)
     counts = launch_counts()
     check_raygen_launches("[15] diffuse and AO", "ao", counts, frames=2)
-    if counts["row_scan"] != scans or counts["packet"] != 4 or any(
-            counts[k] for k in ALL_ENGINES if k != "packet"):
+    if counts["row_scan"] != 4 or counts["child_boxes"] != 2 \
+            or counts["packet"] != 4 or any(
+                counts[k] for k in ALL_ENGINES if k != "packet"):
         raise AssertionError(f"config #3 launches {counts}: want one "
-                             f"build's {scans} row-scan launches and 4 "
-                             "packet launches")
-    if not _bit_equal(torch.from_numpy(rh.flat.nodes),
-                      torch.from_numpy(flat.nodes)):
-        raise AssertionError("Renderer's HLBVH tree differs from the build "
-                             "checked above")
+                             "device build's 4 row-scan and 2 child-box "
+                             "launches and 4 packet launches")
+    built = rh.timer.counts
+    if rh.flat is not None or built["build_fallbacks"] \
+            or built["build_clusters"] < 2:
+        raise AssertionError(f"Renderer(builder='hlbvh'): not the device "
+                             f"route's HLBVH ({built})")
+    packed = pack_bvh(flat, scene.tri_verts(), tris_per_row=12,
+                      nodes_per_row=1)
+    if tree_form(rh.tables.nodes8) != tree_form(packed.nodes8) or \
+            not np.array_equal(rh.tables.tris12.cpu().numpy(),
+                               packed.tris12):
+        raise AssertionError("the device route's HLBVH tables differ from "
+                             "the host route's tree")
+    rf = Renderer(scene, HLBVH_CFG, rc, flat=flat, device=device)
+    for mode, (res, _) in passes.items():
+        want = rf.render(camera, mode)
+        bad = [a for a in ("image", "hit_tri", "hit_t")
+               if not np.array_equal(getattr(res, a), getattr(want, a))]
+        if bad:
+            raise AssertionError(f"[15] render({mode}): the device route "
+                                 f"differs from the host route in {bad}")
+    log(f"[15] device route: {int(built['build_clusters'])} clusters, "
+        f"{int(built['build_top_nodes'])} top nodes, "
+        f"{rh.tables.num_nodes} nodes; the host route's tree one node a "
+        "row, triangle rows bit-equal; diffuse and AO frames (image, "
+        "hit_tri, hit_t) bit-equal to the host route renderer's")
+    del rf
     depth = rh.tables.max_depth
     if depth >= STACK_DEPTH:
         raise AssertionError(f"HLBVH tables {depth} deep; the packet stack "
@@ -2714,11 +2745,11 @@ def phase_fairy(device, n_tris=FAIRY_TRIS, width=WIDTH, height=HEIGHT):
         for name, (rays, any_hit, hits) in zip(names, got):
             if name == "primary" and mode == "ao":
                 continue   # the same primary rays as diffuse's
-            check_pass(f"[15] {mode} pass {name}", scene, rh.flat, rays,
+            check_pass(f"[15] {mode} pass {name}", scene, flat, rays,
                        any_hit, hits)
     phase_fairy_builders(rh, scene, camera, width, height)
-    return rh, {m: dict(zip(("primary", m), got))
-                for m, (_, got) in passes.items()}
+    return rh, flat, {m: dict(zip(("primary", m), got))
+                      for m, (_, got) in passes.items()}
 
 
 def phase_fairy_builders(rh, scene, camera, width, height):
@@ -2752,12 +2783,15 @@ def phase_fairy_builders(rh, scene, camera, width, height):
         + f"; hit rate {(tri_h >= 0).mean():.4f}")
 
 
-def phase_fairy_timing(rh, passes, smi):
-    """Phase 15 times: the build in its parts (inputs to the card; the
-    forest sweep, CUDA events, median of 10; the host top tree and splice
-    and the host pack and upload, host clock, median of 5), and the packet
-    kernel on each pass's batch (CUDA events, warm, median of 10), bit-
-    equal to its twin on a stride sample whose work gives the bound."""
+def phase_fairy_timing(rh, flat, passes, smi):
+    """Phase 15 times: the host route's build in its parts (inputs to the
+    card; the forest sweep, CUDA events, median of 10; the host top tree
+    and splice, the host pack and upload and build_accel, host clock,
+    median of 5 or 3), the device route's update_positions (host clock,
+    synchronised, median of 10, and one traced call's stages), and the
+    packet kernel on each pass's batch (CUDA events, warm, median of 10),
+    bit-equal to its twin on a stride sample whose work gives the
+    bound."""
     scene, dev, n = rh.scene, rh.device, rh.scene.num_tris
 
     def host_ms(fn, iters=5):
@@ -2779,12 +2813,19 @@ def phase_fairy_timing(rh, passes, smi):
     out = hlbvh.forest_sweep(scene, HLBVH_CFG, dev)
     parts["splice"] = host_ms(lambda: hlbvh.splice_forest(scene, HLBVH_CFG,
                                                           out))
-    _, _, tpr, npr = registry.pick_layout(rh.flat)
+    _, _, tpr, npr = registry.pick_layout(flat)
     parts["pack"] = host_ms(lambda: tables_from_packed(pack_bvh(
-        rh.flat, scene.tri_verts(), tris_per_row=tpr, nodes_per_row=npr),
+        flat, scene.tri_verts(), tris_per_row=tpr, nodes_per_row=npr),
         dev))
     parts["build_accel"] = host_ms(lambda: build_accel(scene, HLBVH_CFG,
                                                        device=dev), iters=3)
+    rest = torch.from_numpy(scene.positions).to(dev)
+    parts["update_positions"] = host_ms(lambda: rh.update_positions(rest),
+                                        iters=10)
+    with tracing():
+        st = rh.update_positions(rest)
+    log("[15] update_positions traced: " + json.dumps(
+        {k: round(v, 3) for k, v in st.items()}))
     log("[15] HLBVH build (ms, ms/Mtri): " + "; ".join(
         f"{k} {v:.3f} ({v / (n / 1e6):.3f})" for k, v in parts.items())
         + f" (sweep min {min(sweep):.3f}, max {max(sweep):.3f}); on {smi}")
@@ -2935,10 +2976,10 @@ def main():
     del secondary, ginputs, gtables
     mark("14")
 
-    rh, fairy_passes = phase_fairy(device)
+    rh, fairy_flat, fairy_passes = phase_fairy(device)
     mark("15 checks")
-    phase_fairy_timing(rh, fairy_passes, smi)
-    del rh, fairy_passes
+    phase_fairy_timing(rh, fairy_flat, fairy_passes, smi)
+    del rh, fairy_flat, fairy_passes
     mark("15 times")
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s; seconds since the "

@@ -5,7 +5,8 @@ Counterpart of ntrace_tpu/bvh/lbvh.py: `_mset` (43), `_device_woopify`
 forest mode, which HLBVH builds on: bvh/hlbvh.py), `lbvh_device_fast`
 (345-859, emit="packed" and "flat"), `build_lbvh_packed` (862-904) and
 `build_lbvh_flat` (907-963). The tree of `lbvh_device_fast` is the
-reference's to the bit:
+reference's to the bit (its forest mode, cluster_shift > 0, is the port's
+own: HLBVH's treelets in one pass, held to `lbvh_device`'s forest):
   - Morton codes of the triangle centroids, sorted with the triangle index
     as the tie break (`morton_sort`);
   - the binary radix tree over the boundaries of the sorted codes, through
@@ -268,8 +269,10 @@ def lbvh_device(tri_lo, tri_hi, tri_verts, scene_lo, scene_hi,
     cluster_ids (n,), order (n,) and n_clusters (0-d int32 tensors for the
     counts). Rows past the counts are zeros or sentinels, unreferenced.
     The reverse cummins go through ops/pscan.py:row_scan_i32.
-    Builds call it in forest mode (bvh/hlbvh.py); cluster_shift=0, a plain
-    LBVH beside lbvh_device_fast, is kept for the parity tests against the
+    The flat route's HLBVH builds call it in forest mode (bvh/hlbvh.py:
+    forest_sweep); it is the oracle of lbvh_device_fast's forest mode,
+    which the device route builds with. cluster_shift=0, a plain LBVH
+    beside lbvh_device_fast, is kept for the parity tests against the
     reference.
     """
     n = tri_lo.shape[0]
@@ -419,7 +422,8 @@ def lbvh_device(tri_lo, tri_hi, tri_verts, scene_lo, scene_hi,
 
 def lbvh_device_fast(tri_lo, tri_hi, tri_verts, scene_lo, scene_hi,
                      max_leaf: int = 4, compact_cap: int | None = None,
-                     emit: str = "flat", tpr: int = 12, npr: int = 1):
+                     emit: str = "flat", tpr: int = 12, npr: int = 1,
+                     cluster_shift: int = 0):
     """Single-pass LBVH emission on the tensors' device.
 
     tri_lo/tri_hi: (n, 3) f32 triangle boxes; tri_verts: (n, 3, 3) f32;
@@ -431,6 +435,21 @@ def lbvh_device_fast(tri_lo, tri_hi, tri_verts, scene_lo, scene_hi,
     leaf_count, order); emit="flat": dict(nodes (cap, 16), woop (2n, 12),
     tri_index (2n,), kept, root (compact id), node_count, cap, leaf_count,
     order). Counts are 0-d int32 tensors on the device; cap is an int.
+
+    cluster_shift=k > 0, the forest of HLBVH (bvh/hlbvh.py): the treelets
+    of lbvh_device(cluster_shift=k) in one pass. A cluster is a run of rows
+    with one code >> k; its treelet is the radix tree's subtree over it
+    (the nodes whose split level is at least 30 - k), pruned as above, and
+    a cluster start always starts a leaf run, so no leaf spans two
+    clusters (clusters of at most max_leaf rows stay separate leaves). No
+    record is the root and no treelet root is linked (`root` is None);
+    the dict adds n_clusters (0-d), cluster_roots (ccap,) int32 each
+    cluster's root in the emission's child encoding (a compact id, or the
+    leaf code of a cluster that is one leaf), cluster_rows (ccap,) int32
+    the triangle rows of such a leaf (packed; 0 for a node root) and
+    cluster_boxes (ccap, 6) f32 [lo, hi] over the cluster's rows
+    (child_boxes), ccap = min(n, 2 ** (30 - k)); entries from n_clusters
+    on are unreferenced.
     """
     n = tri_lo.shape[0]
     if n >= MAX_TRIS:
@@ -461,8 +480,17 @@ def lbvh_device_fast(tri_lo, tri_hi, tri_verts, scene_lo, scene_hi,
     size = b - a
     # Duplicate-code (D == 30) splits are never kept: one fat leaf.
     kept = (iota >= 1) & (size > max_leaf) & (D < 30)
-
-    leaf_start = kept | (iota == 0)
+    forest = cluster_shift > 0
+    if forest:
+        # Splits above the clusters' bits belong to the top tree.
+        top_bits = 30 - cluster_shift
+        kept = kept & (D >= top_bits)
+        cstart = D < top_bits         # row 0 (D == -1) starts a cluster
+        # A treelet root hangs from a split of the top (or from nothing).
+        croot = kept & (torch.where(par_left, dl, dr) < top_bits)
+        leaf_start = kept | cstart
+    else:
+        leaf_start = kept | (iota == 0)
     runs_incl = _cumsum(leaf_start)
     lcount = runs_incl[-1]
     dst = iota + runs_incl - 1          # woop row of sorted tri r
@@ -505,15 +533,20 @@ def lbvh_device_fast(tri_lo, tri_hi, tri_verts, scene_lo, scene_hi,
     # The link scatter: each valid non-root kept node writes its compact id
     # into its parent's child slot (targets are distinct).
     pcomp = kposi[parent_c.clamp(0, n - 1).long()]
-    flat_t = torch.where(cvalid & ~root_c, pcomp * 2 + side_c, 2 * ncap)
+    unlinked = croot[ci] if forest else root_c
+    flat_t = torch.where(cvalid & ~unlinked, pcomp * 2 + side_c, 2 * ncap)
     enc = _set_drop(enc.reshape(-1), flat_t, ic).reshape(ncap, 2)
-    rootc = torch.argmax((cvalid & root_c).to(torch.int32)).to(torch.int32)
+    rootc = None if forest else torch.argmax(
+        (cvalid & root_c).to(torch.int32)).to(torch.int32)
+    clusters = {} if not forest else _clusters(
+        cstart, cvalid & unlinked, cidx, slo, shi, dst, emit, tpr,
+        min(n, 1 << top_bits))
 
     if emit == "packed":
-        return _emit_packed(
+        return dict(_emit_packed(
             n, ncap, tpr, npr, cidx, a_c, b_c, lleaf_c, rleaf_c, cvalid,
             enc, rootc, lo0, hi0, lo1, hi1, tv_s, order, kept, node_count,
-            lcount)
+            lcount), **clusters)
 
     zero = torch.zeros((ncap,), **f32)
     cols = [lo0[:, 0], hi0[:, 0], lo0[:, 1], hi0[:, 1],
@@ -541,7 +574,38 @@ def lbvh_device_fast(tri_lo, tri_hi, tri_verts, scene_lo, scene_hi,
     return dict(nodes=nodes, woop=wout[:, :12].contiguous(),
                 tri_index=wout[:, 12].to(torch.int32), kept=kept,
                 root=rootc, node_count=node_count, cap=ncap,
-                leaf_count=lcount, order=order)
+                leaf_count=lcount, order=order, **clusters)
+
+
+def _clusters(cstart, root_nodes, cidx, slo, shi, dst, emit, tpr, ccap):
+    """The forest's clusters (lbvh_device_fast, cluster_shift > 0): their
+    count, each one's root in the emission's encoding, the rows of a root
+    that is a leaf (packed) and each one's box. cstart (n,) marks the
+    cluster starts; root_nodes (cap,) the compact nodes that root a
+    treelet, cidx (cap,) their rows."""
+    n = cstart.shape[0]
+    dev = cstart.device
+    cid = _cumsum(cstart) - 1
+    n_clusters = cid[-1] + 1
+    # Each cluster's rows [cs, ce); past n_clusters both are n.
+    cs = _set_drop(torch.full((ccap,), n, dtype=torch.int32, device=dev),
+                   torch.where(cstart, cid, ccap), _i32(n, dev))
+    ce = torch.cat([cs[1:], cs.new_full((1,), n)])
+    first = cs.clamp(max=n - 1)
+    if emit == "packed":
+        leaf = -torch.div(first, tpr, rounding_mode="floor") - 1
+        rows = (torch.div(ce - 1, tpr, rounding_mode="floor")
+                - torch.div(first, tpr, rounding_mode="floor") + 1)
+    else:
+        leaf = ~dst[first.long()]
+        rows = torch.zeros_like(cs)
+    # A cluster with a kept root node: its compact id (distinct targets).
+    roots = _set_drop(leaf, torch.where(root_nodes, cid[cidx.long()], ccap),
+                      _i32(cidx.shape[0], dev))
+    boxes = child_boxes(slo, shi, cs, ce, ce, n_clusters)[:, :6]
+    return dict(n_clusters=n_clusters, cluster_roots=roots,
+                cluster_rows=torch.where(roots < 0, rows, 0),
+                cluster_boxes=boxes)
 
 
 def _emit_packed(n, ncap, tpr, npr, cidx, a_c, b_c, lleaf_c, rleaf_c,
@@ -563,9 +627,10 @@ def _emit_packed(n, ncap, tpr, npr, cidx, a_c, b_c, lleaf_c, rleaf_c,
     rows0 = floor_div(a_c + size0.clamp(min=1) - 1) - row0 + 1
     rows1 = floor_div(cidx + size1.clamp(min=1) - 1) - row1 + 1
     # Root to slot 0 in the links (swap 0 <-> root); rows swapped below.
-    ei = torch.where(enc >= 0,
-                     torch.where(enc == rootc, 0,
-                                 torch.where(enc == 0, rootc, enc)), enc)
+    # A forest (rootc None) keeps its compact ids.
+    ei = enc if rootc is None else torch.where(
+        enc >= 0, torch.where(enc == rootc, 0,
+                              torch.where(enc == 0, rootc, enc)), enc)
     encf = ei.to(torch.float32)
     # Traversal order code (axis * 2 + child 0 on the low side), from the
     # child centres, as pack_bvh.
@@ -586,8 +651,10 @@ def _emit_packed(n, ncap, tpr, npr, cidx, a_c, b_c, lleaf_c, rleaf_c,
              lo1[:, 1], hi1[:, 1], lo1[:, 2], hi1[:, 2],
              encf[:, 0], encf[:, 1], cnt0, cnt1]
     rec = torch.stack([torch.where(cvalid, c, zero) for c in lanes], dim=1)
-    swap = torch.stack([torch.zeros_like(rootc), rootc.clamp(min=0)]).long()
-    rec[swap] = rec[swap.flip(0)]
+    if rootc is not None:
+        swap = torch.stack([torch.zeros_like(rootc),
+                            rootc.clamp(min=0)]).long()
+        rec[swap] = rec[swap.flip(0)]
     nc8 = -(-ncap // 8) * 8
     if nc8 != ncap:
         rec = torch.cat([rec, torch.zeros((nc8 - ncap, 16), **f32)])
@@ -602,14 +669,17 @@ def _emit_packed(n, ncap, tpr, npr, cidx, a_c, b_c, lleaf_c, rleaf_c,
                            order.to(torch.float32)[:, None]], dim=1)
     tr = -(-n // tpr)
     tr_pad = max(8, -(-(tr + 3) // 8) * 8)
-    padrow = torch.zeros((10,), **f32)
-    padrow[9] = -1.0
+    # The id lane -1; made by cat, not an element write from the host, so
+    # that a CUDA graph can record the build (Graphed).
+    padrow = torch.cat([torch.zeros((9,), **f32),
+                        torch.full((1,), -1.0, **f32)])
     pt = torch.cat([payload10, padrow.expand(tr_pad * tpr - n, 10)])
     pt = pt.reshape(tr_pad, tpr * 10)
     ptris = torch.cat([pt, torch.zeros((tr_pad, 128 - tpr * 10), **f32)],
                       dim=1)
     return dict(pnodes=pnodes.contiguous(), ptris=ptris.contiguous(),
-                kept=kept, root=torch.zeros_like(rootc),
+                kept=kept,
+                root=None if rootc is None else torch.zeros_like(rootc),
                 node_count=node_count, cap=ncap, leaf_count=lcount,
                 order=order)
 
@@ -631,22 +701,89 @@ def device_inputs(scene: Scene, device) -> tuple:
                          for a in (scene.positions, scene.indices)))
 
 
-def _build(args: tuple, carry=None, stage: str = "build", **kw):
+class Graphed:
+    """A call on CUDA tensors recorded once as a CUDA graph and replayed at
+    every later call, so that the host issues one launch in place of the
+    call's hundreds of eager ones. The first call records fn(*xs); from
+    then on the graph reads its own input tensors (copies of the first
+    xs with own_inputs, else the first xs themselves, as when they are
+    another graph's outputs), a later call copies its xs into them where
+    they are other tensors, and fn's outputs, the same tensors at every
+    call, hold what the latest replay wrote. The kernel launch counters
+    (`counters`: functions with a `launches` attribute) gain at each
+    replay what the recording launched. The recording runs fn twice on a
+    side stream first (the warm-up a CUDA graph needs) and leaves the
+    counters as it found them; fn must not read the device from the host.
+    On the CPU fn(*xs) runs as it is, every call."""
+
+    def __init__(self, counters: tuple = (), own_inputs: bool = False):
+        self.counters = counters
+        self.own_inputs = own_inputs
+        self.graph = None
+
+    def __call__(self, fn, *xs):
+        if xs[0].device.type != "cuda":
+            return fn(*xs)
+        if self.graph is None:
+            self._record(fn, xs)
+        else:
+            for buf, x in zip(self.xs, xs):
+                if buf.data_ptr() != x.data_ptr():
+                    buf.copy_(x)
+        self.graph.replay()
+        for c, k in zip(self.counters, self.launched):
+            c.launches += k
+        return self.out
+
+    def _record(self, fn, xs):
+        dev = xs[0].device
+        self.xs = tuple(x.clone() for x in xs) if self.own_inputs else xs
+        before = [c.launches for c in self.counters]
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                fn(*self.xs)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        start = [c.launches for c in self.counters]
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.out = fn(*self.xs)
+        self.launched = [c.launches - k for c, k in zip(self.counters, start)]
+        for c, k in zip(self.counters, before):
+            c.launches = k
+
+
+def _try(args: tuple, carry, cap, kw: dict):
+    """One try of the packed or flat build: (lbvh_device_fast's dict, the
+    int32 words of its read: node_count, then carry(out) where given)."""
+    out = lbvh_device_fast(*args, compact_cap=cap, **kw)
+    words = [out["node_count"].reshape(1)]
+    if carry is not None:
+        words.append(carry(out).reshape(-1).view(torch.int32))
+    return out, torch.cat(words)
+
+
+def _build(args: tuple, carry=None, stage: str = "build",
+           spans: tuple = ("lbvh", "node_count"), graph: Graphed = None,
+           **kw):
     """lbvh_device_fast with the reference's compact_cap retry: a spine-
     shaped radix tree that overflows the cap is rebuilt with the always-
     sufficient cap n. The one host read of each try is node_count, with the
     float32 values that carry(out) gives, when given, in the same copy
-    (timing.read). Spans: ntrace.<stage>.lbvh around each try's build,
-    ntrace.<stage>.node_count around its read. Returns (out, node_count,
+    (timing.read). The first try goes through `graph` where given (a
+    Graphed whose inputs are `args`; carry then reads only tensors that
+    stay). Spans: ntrace.<stage>.<spans[0]> around each try's build,
+    ntrace.<stage>.<spans[1]> around its read. Returns (out, node_count,
     carried f32 array, retries 0 or 1)."""
     def attempt(cap):
-        with timing.span(f"ntrace.{stage}.lbvh"):
-            out = lbvh_device_fast(*args, compact_cap=cap, **kw)
-            words = [out["node_count"].reshape(1)]
-            if carry is not None:
-                words.append(carry(out).reshape(-1).view(torch.int32))
-            words = torch.cat(words)
-        with timing.span(f"ntrace.{stage}.node_count"):
+        with timing.span(f"ntrace.{stage}.{spans[0]}"):
+            if graph is not None and cap is None:
+                out, words = graph(lambda *a: _try(a, carry, None, kw),
+                                   *args)
+            else:
+                out, words = _try(args, carry, cap, kw)
+        with timing.span(f"ntrace.{stage}.{spans[1]}"):
             got = timing.read(words)
         return out, int(got[0]), got[1:].view(np.float32)
 
@@ -659,14 +796,15 @@ def _build(args: tuple, carry=None, stage: str = "build", **kw):
 
 def build_packed_read(args: tuple, max_leaf: int, carry=None, *,
                       stage: str = "build", tris_per_row: int = 12,
-                      nodes_per_row: int = 1) -> tuple:
+                      nodes_per_row: int = 1, graph: Graphed = None) -> tuple:
     """The packed device build from `inputs_from`, with the compact_cap
-    retry, and what its one host read carried (`_build`): (PackedBVH, or
-    None when the tree has no internal node, carried f32 array, retries).
-    carry(pnodes, ptris) gives float32 values on the device."""
+    retry, and what its one host read carried (`_build`, its first try
+    through `graph` where given): (PackedBVH, or None when the tree has no
+    internal node, carried f32 array, retries). carry(pnodes, ptris)
+    gives float32 values on the device."""
     out, nc, carried, retries = _build(
         args, None if carry is None else
-        (lambda o: carry(o["pnodes"], o["ptris"])), stage,
+        (lambda o: carry(o["pnodes"], o["ptris"])), stage, graph=graph,
         max_leaf=max_leaf, emit="packed", tpr=tris_per_row,
         npr=nodes_per_row)
     packed = None if nc == 0 else PackedBVH(

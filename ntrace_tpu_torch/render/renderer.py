@@ -16,10 +16,11 @@ asks `trace/registry.py` once for the BVH engine of cfg.engine (tables and
 trace call: `Renderer.tracer`) and for the screen-space engine of
 "binraster" or "binraster_dense" (`Renderer.screen`), which serves
 canonical primary frames once prepare_primary arms it. builder="lbvh"
-with engine "auto" or "packet" and no `flat` builds the tables on the
-renderer's device (`_rebuild`) and traces them in place (`self.flat` is
-None; `update_positions` rebuilds them from moved vertices); every other
-route builds a FlatBVH (`build_accel`) that the engine packs on the host.
+or "hlbvh" with engine "auto" or "packet" and no `flat` builds the tables
+on the renderer's device (`_rebuild`) and traces them in place
+(`self.flat` is None; `update_positions` rebuilds them from moved
+vertices); every other route builds a FlatBVH (`build_accel`) that the
+engine packs on the host.
 The port reads no tuned.json: "auto" means the packet kernel alone. What
 is not ported raises NotImplementedError naming its ROADMAP item.
 """
@@ -33,10 +34,11 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ntrace_tpu_torch.bvh import hlbvh
 from ntrace_tpu_torch.bvh.hlbvh import build_hlbvh_flat
-from ntrace_tpu_torch.bvh.lbvh import (build_lbvh_flat, build_lbvh_packed,
-                                      build_packed_read, geometric_normals,
-                                      inputs_from)
+from ntrace_tpu_torch.bvh.lbvh import (Graphed, build_lbvh_flat,
+                                      build_lbvh_packed, build_packed_read,
+                                      geometric_normals, inputs_from)
 from ntrace_tpu_torch.host import (BuildConfig, Camera, FlatBVH, RenderConfig,
                                    Scene, build_median_bvh, build_sbvh,
                                    flatten_bvh)
@@ -167,6 +169,10 @@ class Renderer:
         self.scene = scene
         self.cfg = cfg
         self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # "cuda" names the current card; its tensors say cuda:<index>,
+            # which update_positions compares with.
+            self.device = torch.device("cuda", torch.cuda.current_device())
         if cfg.seed_primary != "off":
             raise NotImplementedError(
                 f"seed_primary={cfg.seed_primary!r} is not ported yet "
@@ -176,10 +182,11 @@ class Renderer:
         self.frames = 0         # render() calls: the frame number of spans
         self.updates = 0        # update_positions() calls
         self.build_cfg = build_cfg
-        # Packed-direct: builder="lbvh" builds the packet kernel's tables
-        # on the device (the reference's path on its accelerator).
+        # Packed-direct: builder="lbvh" or "hlbvh" builds the packet
+        # kernel's tables on the device (the reference's path on its
+        # accelerator).
         direct = (flat is None and cfg.engine in ("auto", "packet")
-                  and build_cfg.builder == "lbvh")
+                  and build_cfg.builder in ("lbvh", "hlbvh"))
         # The direct route's triangle indices, on the device: the topology
         # update_positions rebuilds over (None on every other route).
         self._indices = None
@@ -190,6 +197,11 @@ class Renderer:
                 self.flat = None
                 self._indices = torch.from_numpy(scene.indices).to(
                     self.device)
+                # On the card every build replays two CUDA graphs: the
+                # inputs from the positions, then the tree's first try.
+                launches = (row_scan_i32, child_boxes)
+                self._graphs = (Graphed(launches, own_inputs=True),
+                                Graphed(launches))
                 built = self._rebuild(torch.from_numpy(scene.positions).to(
                     self.device), self.timer, "build")
             else:
@@ -239,32 +251,53 @@ class Renderer:
     def _rebuild(self, positions: torch.Tensor, timer: timing.StageTimer,
                  stage: str):
         """The direct route's build from vertex positions on the device, as
-        the stage `stage` (spans ntrace.<stage>.inputs, .lbvh, .node_count):
-        the triangles gathered over the renderer's indices, their boxes,
-        the scene box and the geometric normals on the device, then the
-        LBVH and its packed tables. Its one host read is node_count, which
-        carries the scene box and the tables' check. A tree with no
-        internal node takes the median route on the host, as
-        build_lbvh_packed does. Counters <stage>_tris, <stage>_nodes,
-        <stage>_retries (the compact_cap retry), <stage>_scan_launches
-        (row-scan kernel launches: 4 a try on a CUDA device, 0 on the
-        CPU) and <stage>_box_launches (child-box kernel launches: 1 a try
-        on a CUDA device, 0 on the CPU). Returns (packed, tables)."""
+        the stage `stage`: the triangles gathered over the renderer's
+        indices, their boxes, the scene box and the geometric normals on
+        the device (span ntrace.<stage>.inputs), then the tree and its
+        packed tables, with one host read that carries the scene box and
+        the tables' check. On a CUDA device the inputs and the tree's
+        first try are replays of the renderer's two CUDA graphs (lbvh.py:
+        Graphed), recorded at the constructor's build; their tensors are
+        rewritten by the next build, after the frames of this one.
+          - builder "lbvh": the LBVH (spans .lbvh, .node_count);
+          - builder "hlbvh": the HLBVH (bvh/hlbvh.py:build_packed_read,
+            spans .forest, .read, .top, .splice, and the nested stage
+            <stage>_top), then one upload of the top nodes; where the
+            reference falls back to the plain LBVH, the LBVH build follows
+            in the same call.
+        A tree with no internal node, or fewer than 2 triangles, takes the
+        median route on the host, as build_lbvh_packed does. Counters
+        <stage>_tris, <stage>_nodes, <stage>_retries (the compact_cap
+        retry), <stage>_scan_launches (row-scan kernel launches: 4 a try
+        on a CUDA device, 0 on the CPU), <stage>_box_launches (child-box
+        kernel launches: 1 a try on a CUDA device, 2 for the HLBVH forest,
+        0 on the CPU); on the HLBVH route also <stage>_clusters,
+        <stage>_top_nodes and <stage>_fallbacks (1 where the plain LBVH
+        build served). Returns (packed, tables)."""
         tpr, npr = 12, 1
         n = self._indices.shape[0]
         scans, boxes = row_scan_i32.launches, child_boxes.launches
+        hl = None
         with timer.stage(stage):
             with timing.span(f"ntrace.{stage}.inputs"):
-                args = inputs_from(positions, self._indices)
-                gn = geometric_normals(args[2])
-                box = torch.cat(args[3:])
+                args, gn, box = self._graphs[0](self._inputs, positions)
             packed, retries = None, 0
-            if n >= 2:
-                packed, carried, retries = build_packed_read(
+            if n >= 2 and self.build_cfg.builder == "hlbvh":
+                hl = hlbvh.build_packed_read(args, self.build_cfg, box,
+                                             timer, stage, tris_per_row=tpr,
+                                             graph=self._graphs[1])
+                packed, retries = hl["packed"], hl["retries"]
+                got, top = hl["box"], hl["top"]
+            if packed is None and n >= 2:
+                # HLBVH's fallback builds eagerly: the graph is the forest's.
+                packed, carried, tries = build_packed_read(
                     args, self.build_cfg.max_leaf_size,
                     lambda nodes, tris: torch.cat(
                         [box, table_top(nodes, tris, npr, tpr)]),
-                    stage=stage, tris_per_row=tpr, nodes_per_row=npr)
+                    stage=stage, tris_per_row=tpr, nodes_per_row=npr,
+                    graph=None if hl else self._graphs[1])
+                retries += tries
+                got, top = carried[0:6], carried[6:8].tolist()
             if packed is None:
                 scene = dataclasses.replace(self.scene,
                                             positions=timing.read(positions))
@@ -274,8 +307,7 @@ class Renderer:
                                            device=self.device)
                 (lo, hi), top = scene.bbox(), None
             else:
-                lo, hi = carried[0:3].copy(), carried[3:6].copy()
-                top = carried[6:8].tolist()
+                lo, hi = got[0:3].copy(), got[3:6].copy()
             tables = tables_from_device(packed.nodes8, packed.tris12,
                                         packed.num_nodes, npr, tpr, top=top)
         self.geom_normals = gn
@@ -285,28 +317,42 @@ class Renderer:
         timer.count(f"{stage}_retries", retries)
         timer.count(f"{stage}_scan_launches", row_scan_i32.launches - scans)
         timer.count(f"{stage}_box_launches", child_boxes.launches - boxes)
+        if self.build_cfg.builder == "hlbvh":
+            timer.count(f"{stage}_clusters", hl["clusters"] if hl else 0)
+            timer.count(f"{stage}_top_nodes", hl["top_nodes"] if hl else 0)
+            timer.count(f"{stage}_fallbacks",
+                        int(hl is None or hl["packed"] is None))
         return packed, tables
+
+    def _inputs(self, positions: torch.Tensor) -> tuple:
+        """The build's inputs from vertex positions (lbvh.inputs_from), the
+        geometric normals and the scene box (6,) on the device."""
+        args = inputs_from(positions, self._indices)
+        return args, geometric_normals(args[2]), torch.cat(args[3:])
 
     def update_positions(self, positions: torch.Tensor) -> dict:
         """Move the scene's vertices and rebuild the tree on the device:
         `positions` (V, 3) float32 on the renderer's device; the topology
         (indices, materials) stays, and `self.scene` keeps the positions it
-        was built with. One call builds the LBVH and its packed tables from
-        these positions alone (`_rebuild`, one host read); render() then
-        traces them. The direct LBVH route only (builder "lbvh", engine
-        "auto" or "packet", no `flat`); any other raises
-        NotImplementedError. Returns the call's stats: counters
-        rebuild_tris, rebuild_nodes, rebuild_retries, rebuild_scan_launches,
-        rebuild_box_launches, copies and copy_bytes, and while tracing is
-        on the stage times rebuild and host_rebuild."""
+        was built with. One call builds the tree and its packed tables
+        from these positions alone (`_rebuild`: one host read, and for
+        HLBVH one upload of the top nodes); render() then traces them. The
+        direct route only (builder "lbvh" or "hlbvh", engine "auto" or
+        "packet", no `flat`); any other raises NotImplementedError.
+        Returns the call's stats: counters rebuild_tris, rebuild_nodes,
+        rebuild_retries, rebuild_scan_launches, rebuild_box_launches,
+        copies and copy_bytes (HLBVH adds rebuild_clusters,
+        rebuild_top_nodes and rebuild_fallbacks), and while tracing is on
+        the stage times rebuild and host_rebuild (HLBVH adds rebuild_top
+        and host_rebuild_top, the top tree on the host)."""
         if self._indices is None:
             raise NotImplementedError(
-                "update_positions rebuilds the direct LBVH route only "
-                "(builder 'lbvh', engine 'auto' or 'packet', no `flat` "
+                "update_positions rebuilds the direct route only (builder "
+                "'lbvh' or 'hlbvh', engine 'auto' or 'packet', no `flat` "
                 f"given); this renderer has builder "
                 f"{self.build_cfg.builder!r}, engine {self.cfg.engine!r} "
-                "(ROADMAP queue 6, item 45: update_positions beyond the "
-                "direct LBVH route)")
+                "(ROADMAP queue 6, item 45: update_positions for the host "
+                "builders, the other engines and a given FlatBVH)")
         want = (self.scene.num_verts, 3)
         if tuple(positions.shape) != want:
             raise ValueError(f"positions: shape {tuple(positions.shape)}, "

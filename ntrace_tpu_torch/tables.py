@@ -113,6 +113,33 @@ class PackedTables:
         return int(dist.max())
 
 
+def tree_form(nodes8, nodes_per_row: int = 1, root: int = 0) -> tuple:
+    """The tree under node `root` of packed node records (numpy or a
+    tensor), free of the nodes' numbering: each node is (the bits of its
+    child boxes and count lanes, the form of child 0, of child 1), a leaf
+    child ("leaf", its first triangle row). Two tables hold the same tree,
+    boxes, leaf runs and traversal codes bit for bit, when their forms
+    are equal. Iterative, on the host."""
+    if isinstance(nodes8, torch.Tensor):
+        nodes8 = nodes8.cpu().numpy()
+    rec = np.ascontiguousarray(nodes8[:, :nodes_per_row * NODE_LANES],
+                               np.float32).reshape(-1, NODE_LANES)
+    bits = rec.view(np.int32)
+    enc = rec[:, 12:14].astype(np.int64)
+    forms, stack = {}, [root]
+    while stack:
+        i = stack[-1]
+        todo = [int(c) for c in enc[i] if c >= 0 and int(c) not in forms]
+        if todo:
+            stack.extend(todo)
+            continue
+        stack.pop()
+        kids = tuple(forms[int(c)] if c >= 0 else ("leaf", int(c))
+                     for c in enc[i])
+        forms[i] = (tuple(bits[i, :12]) + tuple(bits[i, 14:]),) + kids
+    return forms[root]
+
+
 def _check_layout(npr: int, tpr: int):
     if not 1 <= npr * NODE_LANES <= 128 or not 1 <= tpr * TRI_LANES <= 128:
         raise ValueError(f"bad packed layout nodes_per_row={npr} "

@@ -87,15 +87,15 @@ class StageTimer:
             _frame.reset(token)
 
     @contextmanager
-    def stage(self, name: str):
-        """The stage `name` as the span ntrace.<name>, timed while tracing
-        is on."""
+    def stage(self, name: str, span: str | None = None):
+        """The stage `name` as the span `span` (ntrace.<name> when None),
+        timed while tracing is on."""
         if not tracing_on():
             yield
             return
         self._sync()
         # The range's own cost stays out of the times.
-        with record_function(f"ntrace.{name}"):
+        with record_function(span or f"ntrace.{name}"):
             t0 = time.perf_counter()
             yield
             t1 = time.perf_counter()

@@ -232,7 +232,6 @@ def test_bad_positions_are_refused(soup, bad, err):
 
 @pytest.mark.parametrize("builder,engine,given_flat", [
     ("binned_sah", "auto", False),
-    ("hlbvh", "auto", False),
     ("lbvh", "binraster_dense", False),
     ("lbvh", "packet_wide", False),
     ("lbvh", "packet_ww", False),
