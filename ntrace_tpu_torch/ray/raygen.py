@@ -65,7 +65,9 @@ def dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def primary(cam: dict, width: int, height: int,
             pixel_order: torch.Tensor) -> RayBatch:
     """One ray per pixel in the slot order of `pixel_order` ((W*H,) int32,
-    from pixel_table), on the device of the camera tensors."""
+    from pixel_table), on the device of the camera tensors. An int32
+    `pixel_order` on that device is the batch's slot_to_id itself, not a
+    copy: callers write into neither."""
     p = torch.as_tensor(pixel_order, device=cam["pos"].device)
     x = (p % width).to(torch.float32)
     y = torch.div(p, width, rounding_mode="floor").to(torch.float32)

@@ -180,6 +180,10 @@ class Renderer:
         self.engine = registry.engine_name(cfg.engine)
         self.timer = timing.StageTimer(self.device)
         self.frames = 0         # render() calls: the frame number of spans
+        # pixel_table's order on the device, per (W, H): uploaded by the
+        # first frame of a size. Read only: raygen.primary's slot_to_id is
+        # this tensor.
+        self._pixel_orders: dict[tuple[int, int], torch.Tensor] = {}
         self.updates = 0        # update_positions() calls
         self.build_cfg = build_cfg
         # Packed-direct: builder="lbvh" or "hlbvh" builds the packet
@@ -492,10 +496,13 @@ class Renderer:
         return _trace_batched(self.tracer.trace, batch, self._cap(), any_hit)
 
     def render(self, camera: Camera, mode: str | None = None) -> RenderResult:
-        """One frame. Its stats hold the ray counts of each pass and the
-        frame's copies between host and device (utils/timing.py: copies,
-        copy_bytes); while tracing is on, also each stage's wall and host
-        milliseconds (<stage>, host_<stage>)."""
+        """One frame, returned once its image and hits are on the host.
+        Its stats hold the ray counts of each pass, the frame's copies
+        between host and device (utils/timing.py: copies, copy_bytes,
+        pinned_reads: 3 a frame on a CUDA device, 0 on the CPU) and
+        pixel_order_resident (0 on the first frame of a size, which
+        uploads the pixel order; 1 after); while tracing is on, also each
+        stage's wall and host milliseconds (<stage>, host_<stage>)."""
         mode = mode or self.cfg.mode
         if mode == "textured":
             raise NotImplementedError(
@@ -514,12 +521,10 @@ class Renderer:
         """One frame of render(): (image, hit_tri, hit_t) on the host."""
         cfg = self.cfg
         W, H = cfg.width, cfg.height
-        order, _ = pixel_table(W, H)
         cam = raygen.camera_arrays(camera, W, H, self.device)
         with timer.stage("raygen"):
-            with timing.span("ntrace.upload_pixels"):
-                pixels = timing.upload(order.copy(), self.device)
-            batch = raygen.primary(cam, W, H, pixels)
+            batch = raygen.primary(cam, W, H,
+                                   self._pixel_order(W, H, timer))
         with timer.stage("prepare_primary"):
             self.prepare_primary(cam, W, H)
         with timer.stage("trace_primary"):
@@ -565,11 +570,24 @@ class Renderer:
             fb = torch.zeros((W * H, 3), dtype=torch.float32,
                              device=self.device)
             fb[batch.slot_to_id.long()] = color
-            img = timing.read(fb).reshape(H, W, 3)
         with timer.stage("readback"):
-            hit_tri = timing.read(unsort(tri, batch.slot_to_id))
-            hit_t = timing.read(unsort(t, batch.slot_to_id))
-        return img, hit_tri, hit_t
+            img, hit_tri, hit_t = timing.read_all(
+                fb, unsort(tri, batch.slot_to_id),
+                unsort(t, batch.slot_to_id))
+        return img.reshape(H, W, 3), hit_tri, hit_t
+
+    def _pixel_order(self, W: int, H: int, timer: timing.StageTimer):
+        """pixel_table(W, H)'s order, (W*H,) int32 on the device: uploaded
+        on the first frame of the size (span ntrace.upload_pixels), the
+        resident tensor after. Nothing may write into it."""
+        order = self._pixel_orders.get((W, H))
+        timer.count("pixel_order_resident", int(order is not None))
+        if order is None:
+            with timing.span("ntrace.upload_pixels"):
+                order = timing.upload(pixel_table(W, H)[0].copy(),
+                                      self.device)
+            self._pixel_orders[(W, H)] = order
+        return order
 
     def _path_trace(self, key, batch: RayBatch, tri, t,
                     timer: timing.StageTimer):

@@ -10,11 +10,11 @@ the stage's work) under host_<stage>; every stage and span is a
 `torch.profiler.record_function` range, on the clock of the profiler's
 device trace. No span but a stage synchronises.
 
-`upload` and `read` are the copies between host and device that a frame
-makes: they count `copies` and `copy_bytes` into the StageTimer whose
-`frame` is open, traced or not (on a CPU device the same sites count,
-though nothing crosses a bus). `cuda_ms` times device work with CUDA
-events.
+`upload`, `read` and `read_all` are the copies between host and device
+that a frame makes: they count `copies` and `copy_bytes` into the
+StageTimer whose `frame` is open, traced or not (on a CPU device the same
+sites count, though nothing crosses a bus); `read_all` also counts
+`pinned_reads`. `cuda_ms` times device work with CUDA events.
 """
 
 from __future__ import annotations
@@ -112,11 +112,15 @@ class StageTimer:
                 **self.counts}
 
 
-def _copied(nbytes: int):
+def _copied(nbytes: int, pinned: bool | None = None):
+    """Count one copy of `nbytes`; `pinned` (read_all's reads) also counts
+    whether it landed in page-locked memory."""
     timer = _frame.get()
     if timer is not None:
         timer.count("copies", 1)
         timer.count("copy_bytes", nbytes)
+        if pinned is not None:
+            timer.count("pinned_reads", int(pinned))
 
 
 def upload(a: np.ndarray, device) -> torch.Tensor:
@@ -131,6 +135,29 @@ def read(t: torch.Tensor) -> np.ndarray:
     a = t.cpu().numpy()
     _copied(a.nbytes)
     return a
+
+
+def read_all(*ts: torch.Tensor) -> list[np.ndarray]:
+    """The tensors `ts` on the host, as numpy: one copy of each's bytes.
+
+    On a CUDA device each lands in a fresh page-locked block from torch's
+    caching host allocator, every copy queued on the current stream behind
+    the work before it, and the host waits once, after the last; a block
+    goes back to the cache when its array is dropped. On the CPU each is
+    `read`."""
+    pinned = ts[0].device.type == "cuda"
+    if pinned:
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                for t in ts]
+        for h, t in zip(host, ts):
+            h.copy_(t, non_blocking=True)
+        torch.cuda.current_stream(ts[0].device).synchronize()
+        outs = [h.numpy() for h in host]
+    else:
+        outs = [t.cpu().numpy() for t in ts]
+    for a in outs:
+        _copied(a.nbytes, pinned)
+    return outs
 
 
 def cuda_ms(fn, *, warmup: int = 1, iters: int = 10) -> list[float]:
