@@ -65,12 +65,15 @@ Phases, each printed as it completes:
      on 256 (exact tri); images finite and not black; diffuse ray 411,517
      (a hit on the shared edge of two flat leaf boxes) bit-equal to
      brute_force_mt; csrc/secondary_rays.cu launched once by each AO and
-     diffuse render() (and by no other mode, here and in every recorded
-     render after), and against its plain version on the AO frame's
-     primary hits, AO and diffuse: random words, origins, tmin, tmax and
-     keys bit-equal (keys where the directions are), the direction
-     components that differ counted (at most 2 ulps), the kernel's time
-     beside its bound and the plain chain's time
+     diffuse render() and once a bounce by each path render() (and by no
+     other mode, here and in every recorded render after), and against
+     its plain version on the AO frame's primary hits, AO and diffuse, and
+     on the inputs of each bounce of a path render() (one sample a ray,
+     the bounce before's rays and hits, dead rays among them): random
+     words, origins, tmin, tmax and keys bit-equal (keys where the
+     directions are), the direction components that differ counted (at
+     most 2 ulps), the kernel's time beside its bound and the plain
+     chain's time
   9. the while-while and speculative while-while kernels
      (csrc/packet_ww.cu, csrc/packet_ifif.cu): the phase-3 soup check for
      each; all four modes rendered with engine packet_ww and packet_ifif,
@@ -252,7 +255,7 @@ SCAN_REPLACES = "ntrace_tpu/ops/pscan.py:33"
 SECONDARY_SOURCE = "ntrace_tpu_torch/csrc/secondary_rays.cu"
 BOXES_SOURCE = "ntrace_tpu_torch/csrc/child_boxes.cu"
 # render() modes whose secondary rays come from csrc/secondary_rays.cu, one
-# launch a frame.
+# launch a frame (path mode's bounces too: one launch a bounce).
 KERNEL_RAYGEN_MODES = ("ao", "diffuse")
 # The traversal engines of the secondary slice: kernel wrapper (the one the
 # registry binds, `TRACE`), twin, source and the TPU kernel each replaces.
@@ -1152,10 +1155,12 @@ def launch_counts() -> dict:
             "secondary_rays": raygen.secondary_rays.launches}
 
 
-def check_raygen_launches(tag, mode, counts, frames=1):
+def check_raygen_launches(tag, mode, counts, frames=1, bounces=2):
     """`frames` render()s of `mode` launched csrc/secondary_rays.cu once
-    each for AO and diffuse, never for the other modes."""
-    want = frames if mode in KERNEL_RAYGEN_MODES else 0
+    each for AO and diffuse, `bounces` times each for path, never for the
+    other modes."""
+    want = frames * (1 if mode in KERNEL_RAYGEN_MODES
+                     else bounces if mode == "path" else 0)
     if counts["secondary_rays"] != want:
         raise AssertionError(f"{tag}: {counts['secondary_rays']} "
                              f"secondary_rays launches, want {want}")
@@ -1228,7 +1233,8 @@ def render_recorded(r, mode, camera):
     with recorded(r) as passes, tracing():
         res = r.render(camera, mode)
     counts = launch_counts()
-    check_raygen_launches(f"render({mode})", mode, counts)
+    check_raygen_launches(f"render({mode})", mode, counts,
+                          bounces=r.cfg.bounces)
     names = PASSES[mode]
     if len(passes) != len(names):
         raise AssertionError(f"render({mode}) traced {len(passes)} passes, "
@@ -1293,69 +1299,117 @@ def ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (ordered(a) - ordered(b)).abs()
 
 
+def path_raygen_calls(r, camera):
+    """The arguments of each raygen.secondary_rays call that one path
+    render() makes, as (words, the arguments after them with
+    direction_major last): per bounce, one sample a ray from the rays
+    before it and their hits (the primary pass, then the bounce before,
+    whose dead rays hold tri -1 and t 0)."""
+    calls, base = [], raygen.secondary_rays
+
+    def rec(words, *args, direction_major):
+        calls.append((words, args + (direction_major,)))
+        return base(words, *args, direction_major=direction_major)
+
+    # secondary_rays counts its launches on the module's name, rec here.
+    rec.launches = base.launches
+    raygen.secondary_rays = rec
+    try:
+        r.render(camera, "path")
+    finally:
+        raygen.secondary_rays = base
+        base.launches = rec.launches
+    if len(calls) != r.cfg.bounces:
+        raise AssertionError(f"render(path) called secondary_rays "
+                             f"{len(calls)} times, want {r.cfg.bounces}")
+    return calls
+
+
 def phase_secondary_rays(tag, r, prim, smi):
     """Phases 8 (conference) and 10 (hairball): csrc/secondary_rays.cu
     against its plain version on the card, on the primary pass `prim`
     (rays, any_hit, hits) that r.render() traced, at the renderer's
-    samples and seed, AO and diffuse. Random words, origins, tmin and tmax
-    bit-equal, keys wherever the directions are; directions within 2 ulps,
-    the components that differ counted. The kernel's ms (CUDA events,
-    warm, median of 20) beside its bound (bytes: the primary rays and hits,
-    each distinct normal row gathered once, the outputs) and the plain
-    chain's ms, and the sort that follows it in render(). Returns the
-    diffuse run's row."""
+    samples and seed, AO and diffuse; then (phase 8) on the inputs of each
+    bounce of one path render() (path_raygen_calls: one sample a ray,
+    diffuse keys, the bounce before's rays and hits with its dead rays).
+    Random words, origins, tmin and tmax bit-equal, keys wherever the
+    directions are; directions within 2 ulps, the components that differ
+    counted. The kernel's ms (CUDA events, warm, median of 20) beside its
+    bound (bytes: the rays and hits before, each distinct normal row
+    gathered once, the outputs) and the plain chain's ms, and the sort
+    that follows it in render(). Returns the diffuse run's row."""
     (orig, dirn, tmin, tmax), _, hits = prim
     batch = RayBatch(orig, dirn, tmin, tmax)
-    cfg, R, S = r.cfg, orig.shape[0], r.cfg.samples
-    n, words = R * S, rng.key_words(cfg.seed)
-    row = None
-    for mode in KERNEL_RAYGEN_MODES:
-        args = (batch, hits[0], hits[1], r.geom_normals, S,
-                r.secondary_length(mode), r.eps, r.scene_lo, r.scene_hi,
-                mode != "ao")
-        bits = torch.empty((n, 2), dtype=torch.int32, device=orig.device)
-        got, key = raygen.secondary_rays(words, *args, bits=bits)
-        want, want_key = raygen.secondary_rays_ref(words, *args)
-        fails = [name for name, a, b in (
-            ("random words", bits, rng.random_bits32(
-                words, (n, 2), orig.device).to(torch.int32)),
-            ("origins", got.orig, want.orig), ("tmin", got.tmin, want.tmin),
-            ("tmax", got.tmax, want.tmax))
-            if not _bit_equal(a, b)]
-        du = ulps(got.dirn, want.dirn)
-        same = (du == 0).all(dim=1)
-        if not torch.equal(key[same], want_key[same]):
-            fails.append("keys where the directions are equal")
-        if int(du.max()) > 2:
-            fails.append(f"directions ({int(du.max())} ulps apart)")
-        if fails:
-            raise AssertionError(f"{tag} secondary_rays {mode}: "
-                                 f"{', '.join(fails)} differ from "
-                                 "secondary_rays_ref")
-        ms = statistics.median(cuda_ms(
-            lambda: raygen.secondary_rays(words, *args), warmup=2, iters=20))
-        plain = statistics.median(cuda_ms(
-            lambda: raygen.secondary_rays_ref(words, *args), warmup=1,
-            iters=5))
-        sort_ms = statistics.median(cuda_ms(lambda: sort_by_key(got, key),
-                                            warmup=2, iters=20))
-        rows = torch.unique(hits[0].clamp(min=0)).numel()
-        moved = nbytes(orig, dirn, hits[0], hits[1]) + rows * 12 + nbytes(
-            got.orig, got.dirn, got.tmin, got.tmax, key)
-        bnd = bound(moved, 0)
-        log(f"{tag} secondary_rays {mode} ({R} primary rays x {S}, "
-            f"{int((key == DEAD_KEY).sum())} dead): random words, origins, "
-            f"tmin, tmax bit-equal to secondary_rays_ref, keys on the "
-            f"{int(same.sum())} rays whose directions are; direction "
-            f"components differing {int((du > 0).sum())} of {3 * n} (max "
-            f"{int(du.max())} ulps), keys differing "
-            f"{int((key != want_key).sum())}; kernel median {ms:.4f} ms of "
-            f"20, bound {bnd[0]:.4f} ms by {bnd[1]} ({moved / 1e6:.1f} MB; "
-            f"{ms / bnd[0]:.1f}x), plain chain {plain:.3f} ms, then "
-            f"sort_by_key {sort_ms:.4f} ms, on {smi}")
-        row = {"ms": ms, "plain_ms": plain, "bound": bnd, "sort_ms": sort_ms,
-               "max_abs_err": float((got.dirn - want.dirn).abs().max())}
-    return row
+    cfg = r.cfg
+    words = rng.key_words(cfg.seed)
+    cases = [(mode, words, (batch, hits[0], hits[1], r.geom_normals,
+                            cfg.samples, r.secondary_length(mode), r.eps,
+                            r.scene_lo, r.scene_hi, mode != "ao"))
+             for mode in KERNEL_RAYGEN_MODES]
+    if tag == "[8]":
+        calls = path_raygen_calls(r, default_camera("conference"))
+        cases += [(f"path bounce {b}", w, args)
+                  for b, (w, args) in enumerate(calls)]
+        # The conference is closed, so no path dies there: the last
+        # bounce's inputs again, every fifth ray dead as a missed one is.
+        w, args = calls[-1]
+        tri, t = args[1].clone(), args[2].clone()
+        tri[::5], t[::5] = -1, 0.0
+        cases.append(("path bounce, a fifth dead", w,
+                      (args[0], tri, t) + args[3:]))
+    rows = {}
+    for name, words, args in cases:
+        rows[name] = _check_secondary_rays(f"{tag} secondary_rays {name}",
+                                           words, args, smi)
+    return rows["diffuse"]
+
+
+def _check_secondary_rays(tag, words, args, smi):
+    """One case of phase_secondary_rays: the kernel and its plain version
+    on `args` (secondary_rays's arguments after the words)."""
+    inp, tri, t, S = args[0], args[1], args[2], args[4]
+    dev = tri.device
+    n = inp.num_rays * S
+    bits = torch.empty((n, 2), dtype=torch.int32, device=dev)
+    got, key = raygen.secondary_rays(words, *args, bits=bits)
+    want, want_key = raygen.secondary_rays_ref(words, *args)
+    fails = [name for name, a, b in (
+        ("random words", bits, rng.random_bits32(
+            words, (n, 2), dev).to(torch.int32)),
+        ("origins", got.orig, want.orig), ("tmin", got.tmin, want.tmin),
+        ("tmax", got.tmax, want.tmax))
+        if not _bit_equal(a, b)]
+    du = ulps(got.dirn, want.dirn)
+    same = (du == 0).all(dim=1)
+    if not torch.equal(key[same], want_key[same]):
+        fails.append("keys where the directions are equal")
+    if int(du.max()) > 2:
+        fails.append(f"directions ({int(du.max())} ulps apart)")
+    if fails:
+        raise AssertionError(f"{tag}: {', '.join(fails)} differ from "
+                             "secondary_rays_ref")
+    ms = statistics.median(cuda_ms(
+        lambda: raygen.secondary_rays(words, *args), warmup=2, iters=20))
+    plain = statistics.median(cuda_ms(
+        lambda: raygen.secondary_rays_ref(words, *args), warmup=1, iters=5))
+    sort_ms = statistics.median(cuda_ms(lambda: sort_by_key(got, key),
+                                        warmup=2, iters=20))
+    rows = torch.unique(tri.clamp(min=0)).numel()
+    moved = nbytes(inp.orig, inp.dirn, tri, t) + rows * 12 + nbytes(
+        got.orig, got.dirn, got.tmin, got.tmax, key)
+    bnd = bound(moved, 0)
+    log(f"{tag} ({inp.num_rays} rays before x {S}, {int((tri < 0).sum())} "
+        f"of them missed, {int((key == DEAD_KEY).sum())} dead): random "
+        f"words, origins, tmin, tmax bit-equal to secondary_rays_ref, keys "
+        f"on the {int(same.sum())} rays whose directions are; direction "
+        f"components differing {int((du > 0).sum())} of {3 * n} (max "
+        f"{int(du.max())} ulps), keys differing "
+        f"{int((key != want_key).sum())}; kernel median {ms:.4f} ms of 20, "
+        f"bound {bnd[0]:.4f} ms by {bnd[1]} ({moved / 1e6:.1f} MB; "
+        f"{ms / bnd[0]:.1f}x), plain chain {plain:.3f} ms, then sort_by_key "
+        f"{sort_ms:.4f} ms, on {smi}")
+    return {"ms": ms, "plain_ms": plain, "bound": bnd, "sort_ms": sort_ms,
+            "max_abs_err": float((got.dirn - want.dirn).abs().max())}
 
 
 def same_rays(a, b) -> bool:

@@ -1,8 +1,9 @@
 """RayBatch on torch tensors and the Morton re-sort of secondary rays
 (counterpart of ntrace_tpu/ray/raybatch.py: `_direction_octant` 44-50,
 `morton_sort_key` 53-86, `morton_sort_rays` 89-112, `unsort` 115-124).
-`sort_by_key` is the sort's shared half: morton_sort_rays computes the key
-in torch, raygen.secondary_rays takes it from its kernel.
+The reference's morton_sort_rays is `sort_by_key` on the key that
+raygen.secondary_rays makes beside its rays (its kernel on a CUDA device,
+morton_sort_key with DEAD_KEY on dead rays on the CPU).
 
 The sort keys are int32 and bit-equal to the reference's; the sort is
 stable, as `jnp.argsort` is, so equal keys keep their order and the
@@ -77,17 +78,6 @@ def sort_by_key(batch: RayBatch, key: torch.Tensor) -> RayBatch:
                     dirn=batch.dirn.index_select(0, order),
                     tmin=batch.tmin.index_select(0, order),
                     tmax=batch.tmax.index_select(0, order), slot_to_id=ids)
-
-
-def morton_sort_rays(batch: RayBatch, scene_lo: torch.Tensor,
-                     scene_hi: torch.Tensor,
-                     direction_major: bool = True) -> RayBatch:
-    """A new RayBatch sorted for coherence, dead rays last, with slot_to_id
-    carried along."""
-    key = morton_sort_key(batch.orig, batch.dirn, scene_lo, scene_hi,
-                          direction_major=direction_major)
-    key = torch.where(batch.tmax <= batch.tmin, DEAD_KEY, key)
-    return sort_by_key(batch, key)
 
 
 def unsort(values: torch.Tensor, slot_to_id: torch.Tensor) -> torch.Tensor:

@@ -9,12 +9,13 @@ combination summed left to right, then d / ||d|| with
 XLA on the CPU may differ in the last bit, so directions agree with the
 reference within a few ulps, not bit for bit.
 
-`secondary_rays` makes a frame's whole AO or diffuse batch and its sort
-key from the primary rays and their hits: on a CUDA device in one launch
-of the hand-written kernel csrc/secondary_rays.cu (which replaces no TPU
-kernel), on the CPU through its plain version `secondary_rays_ref`, the
-torch chain of surface_frame, ao and raybatch.morton_sort_key. Nothing
-falls back from one to the other.
+`secondary_rays` makes a frame's whole AO or diffuse batch, or a path
+bounce's (one sample a ray), and its sort key from the rays before and
+their hits: on a CUDA device in one launch of the hand-written kernel
+csrc/secondary_rays.cu (which replaces no TPU kernel), on the CPU through
+its plain version `secondary_rays_ref`, the torch chain of surface_frame,
+ao and raybatch.morton_sort_key. Nothing falls back from one to the
+other.
 """
 
 from __future__ import annotations
@@ -101,7 +102,7 @@ def _onb(n: torch.Tensor):
 
 def cosine_hemisphere(key, n: torch.Tensor, shape: tuple):
     """Cosine-weighted directions about unit normals n, broadcast to
-    shape + (3,); key is an rng key on n's device or its host words."""
+    shape + (3,), from the host key words `key`."""
     u = rng.uniform(key, tuple(shape) + (2,), n.device)
     r = torch.sqrt(u[..., 0])
     phi = float(np.float32(2.0 * np.pi)) * u[..., 1]

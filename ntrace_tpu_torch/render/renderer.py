@@ -46,8 +46,7 @@ from ntrace_tpu_torch.ops.boxes import child_boxes
 from ntrace_tpu_torch.ops.pscan import row_scan_i32
 from ntrace_tpu_torch.ray import raygen, rng
 from ntrace_tpu_torch.ray.pixeltable import pixel_table
-from ntrace_tpu_torch.ray.raybatch import (RayBatch, morton_sort_rays,
-                                           sort_by_key, unsort)
+from ntrace_tpu_torch.ray.raybatch import RayBatch, sort_by_key, unsort
 from ntrace_tpu_torch.tables import table_top, tables_from_device
 from ntrace_tpu_torch.trace import registry
 from ntrace_tpu_torch.utils import timing
@@ -61,6 +60,10 @@ class RenderResult:
     hit_tri: np.ndarray      # (H*W,) int32 primary hits (pixel order)
     hit_t: np.ndarray        # (H*W,) float32
     stats: dict = field(default_factory=dict)
+    # Path mode: each path's last hit, (H*W,) int32 on the device in the
+    # frame's ray-slot order (pixel_table's), -1 where the path ended
+    # before it; never read back by render(). None in the other modes.
+    bounce_tri: torch.Tensor | None = None
 
 
 def build_accel(scene: Scene, cfg: BuildConfig = BuildConfig(), *,
@@ -122,22 +125,26 @@ def _trace_batched(tracer, batch: RayBatch, cap: int, any_hit: bool):
 
 
 def _compact_trace(tracer, batch: RayBatch, cap: int, any_hit: bool,
-                   compact: str = "auto"):
+                   compact: str = "auto", live=None):
     """Trace only the live prefix of a batch whose dead rays are at the end
-    (after morton_sort_rays); the rest get the miss sentinel tri -1, t 0,
+    (after a Morton sort); the rest get the miss sentinel tri -1, t 0,
     u 0, v 0.
 
     The reference pads the prefix to a power of two to bound XLA
     recompiles; the port traces the slots up to the last live ray, which
     gives identical results (a dead ray traced is the same sentinel: its
     tmax is 0). compact: "on", "off", or "auto" (when at most 3/4 of the
-    rays are live).
+    rays are live). live, where given, is called with the live rays that
+    the pass read, or with the batch's rays where it read none (compaction
+    off, or at most 8,192 rays).
     """
     if compact not in ("on", "off", "auto"):
         raise ValueError(f"compact_rays must be on, off or auto, not "
                          f"{compact!r}")
     n = batch.num_rays
     if compact == "off" or n <= 8192:
+        if live is not None:
+            live(n)
         return _trace_batched(tracer, batch, cap, any_hit)
     with timing.span("ntrace.compact"):
         live_mask = batch.tmax > batch.tmin
@@ -145,11 +152,13 @@ def _compact_trace(tracer, batch: RayBatch, cap: int, any_hit: bool,
         found = torch.stack([live_mask.sum(),
                              torch.where(live_mask, slots, -1).max()])
         with timing.span("ntrace.compact.live_read"):
-            live, last = timing.read(found).tolist()
+            n_live, last = timing.read(found).tolist()
+        if live is not None:
+            live(n_live)
         # Dead rays sort last, but a live ray may share their key, so the
         # prefix runs through the last live slot.
         prefix = last + 1
-        if prefix < n and (compact == "on" or live <= (3 * n) // 4):
+        if prefix < n and (compact == "on" or n_live <= (3 * n) // 4):
             sub = RayBatch(batch.orig[:prefix], batch.dirn[:prefix],
                            batch.tmin[:prefix], batch.tmax[:prefix])
             tri, t, u, v = _trace_batched(tracer, sub, cap, any_hit)
@@ -475,12 +484,13 @@ class Renderer:
             return sec, mode == "ao"
         raise ValueError(f"no secondary pass for mode {mode!r}")
 
-    def _trace_secondary(self, batch: RayBatch, any_hit: bool):
+    def _trace_secondary(self, batch: RayBatch, any_hit: bool, live=None):
         """One secondary pass through the BVH engine (the reference's
         plain-tracer branch of `_secondary_tracer`): the live prefix of a
         sorted batch, or the whole batch. seed_secondary and
         stage_secondary "auto" resolve to off (the reference's auto needs
-        tuned.json entries); "on" is not ported yet."""
+        tuned.json entries); "on" is not ported yet. live: as in
+        _compact_trace (an unsorted batch reads none: its ray count)."""
         for name in ("seed_secondary", "stage_secondary"):
             value = getattr(self.cfg, name)
             if value == "on":
@@ -492,12 +502,16 @@ class Renderer:
                                  f"{value!r}")
         if self.cfg.sort_secondary:   # dead rays are at the end
             return _compact_trace(self.tracer.trace, batch, self._cap(),
-                                  any_hit, compact=self.cfg.compact_rays)
+                                  any_hit, compact=self.cfg.compact_rays,
+                                  live=live)
+        if live is not None:
+            live(batch.num_rays)
         return _trace_batched(self.tracer.trace, batch, self._cap(), any_hit)
 
     def render(self, camera: Camera, mode: str | None = None) -> RenderResult:
         """One frame, returned once its image and hits are on the host.
-        Its stats hold the ray counts of each pass, the frame's copies
+        Its stats hold the ray counts of each pass (path mode also the
+        live rays of each bounce, live_bounce<b>), the frame's copies
         between host and device (utils/timing.py: copies, copy_bytes,
         pinned_reads: 3 a frame on a CUDA device, 0 on the CPU) and
         pixel_order_resident (0 on the first frame of a size, which
@@ -513,12 +527,14 @@ class Renderer:
         timer = timing.StageTimer(self.device)
         self.frames += 1
         with timer.frame("ntrace.render", str(self.frames)):
-            img, hit_tri, hit_t = self._render(camera, mode, timer)
+            img, hit_tri, hit_t, bounce_tri = self._render(camera, mode,
+                                                           timer)
         return RenderResult(image=img, hit_tri=hit_tri, hit_t=hit_t,
-                            stats=timer.ms())
+                            stats=timer.ms(), bounce_tri=bounce_tri)
 
     def _render(self, camera: Camera, mode: str, timer: timing.StageTimer):
-        """One frame of render(): (image, hit_tri, hit_t) on the host."""
+        """One frame of render(): (image, hit_tri, hit_t) on the host and,
+        in path mode, the last hits (RenderResult.bounce_tri)."""
         cfg = self.cfg
         W, H = cfg.width, cfg.height
         cam = raygen.camera_arrays(camera, W, H, self.device)
@@ -535,6 +551,7 @@ class Renderer:
                                               cam=cam, canonical=True)
         timer.count("rays_primary", batch.num_rays)
         base_col = normal_color(self.geom_normals, tri)
+        bounce_tri = None
 
         if mode == "primary":
             color = base_col
@@ -563,9 +580,9 @@ class Renderer:
                 bounce = normal_color(self.geom_normals, stri).reshape(
                     -1, S, 3).mean(dim=1)
                 color = base_col * 0.5 + bounce * 0.5
-        else:   # path: rng.split needs the key on the device
-            color = self._path_trace(rng.prng_key(cfg.seed, self.device),
-                                     batch, tri, t, timer)
+        else:
+            color, bounce_tri = self._path_trace(rng.key_words(cfg.seed),
+                                                 batch, tri, t, timer)
         with timer.stage("shade"):
             fb = torch.zeros((W * H, 3), dtype=torch.float32,
                              device=self.device)
@@ -574,7 +591,7 @@ class Renderer:
             img, hit_tri, hit_t = timing.read_all(
                 fb, unsort(tri, batch.slot_to_id),
                 unsort(t, batch.slot_to_id))
-        return img.reshape(H, W, 3), hit_tri, hit_t
+        return img.reshape(H, W, 3), hit_tri, hit_t, bounce_tri
 
     def _pixel_order(self, W: int, H: int, timer: timing.StageTimer):
         """pixel_table(W, H)'s order, (W*H,) int32 on the device: uploaded
@@ -589,53 +606,70 @@ class Renderer:
             self._pixel_orders[(W, H)] = order
         return order
 
-    def _path_trace(self, key, batch: RayBatch, tri, t,
-                    timer: timing.StageTimer):
-        """`bounces`-bounce diffuse path tracing with emissive materials."""
+    def _path_trace(self, words: tuple[int, int], batch: RayBatch, tri,
+                    t, timer: timing.StageTimer):
+        """`bounces`-bounce diffuse path tracing with emissive materials,
+        from the host key words `words` of cfg.seed. Each bounce b is three
+        stages: raygen_bounce<b> (the sky term of primary misses on the
+        first; the hit's material, emission and throughput; the key split
+        on the host and the bounce rays from raygen.secondary_rays at one
+        sample, their normals, origins, cosine directions and sort key, one
+        kernel launch on a CUDA device; the sort), trace_bounce<b>, and
+        shade_bounce<b> (the unsort, the sky term of the bounce's misses,
+        the live mask); shade_bounce<bounces> holds the last hit's
+        emission. A bounce ray is live where the ray before it hit, which
+        is where its path is alive. Counters rays_bounce<b> and
+        live_bounce<b> (the live rays _compact_trace read, or the batch's
+        rays where it read none). Returns (radiance, the last hit of each
+        path), both in the batch's slot order."""
         cfg = self.cfg
         R = batch.num_rays
         dev = self.device
-        throughput = torch.ones((R, 3), dtype=torch.float32, device=dev)
-        radiance = torch.zeros((R, 3), dtype=torch.float32, device=dev)
-        cur_orig, cur_dirn = batch.orig, batch.dirn
-        cur_tri, cur_t = tri, t
-        alive = cur_tri >= 0
-        # Sky term for primary misses.
-        radiance = radiance + torch.where(alive[:, None], 0.0, 0.05)
+        cur, cur_tri, cur_t = batch, tri, t
         for b in range(cfg.bounces + 1):
-            mat = self.mat_ids[cur_tri.clamp(min=0).long()]
-            emis = self.mat_emissive[mat]
-            diff = self.mat_diffuse[mat]
-            radiance = radiance + torch.where(alive[:, None],
-                                              throughput * emis, 0.0)
-            throughput = throughput * torch.where(alive[:, None], diff, 0.0)
-            if b == cfg.bounces:
-                break
-            normals = self._unit_normals(cur_tri, cur_dirn)
-            hit_pos = cur_orig + torch.where(alive, cur_t, 0.0)[:, None] \
-                * cur_dirn
-            key, sub = rng.split(key)
-            d = raygen.cosine_hemisphere(sub, normals, (R,))
-            o = hit_pos + normals * self.eps
-            nb = RayBatch(o, d, torch.zeros((R,), dtype=torch.float32,
-                                            device=dev),
-                          torch.where(alive, float(np.float32(
-                              self.scene_scale * 10)), 0.0),
-                          torch.arange(R, dtype=torch.int32, device=dev))
-            if cfg.sort_secondary:
-                with timing.span("ntrace.sort"):
-                    nb = morton_sort_rays(nb, self.scene_lo, self.scene_hi)
+            last = b == cfg.bounces
+            with timer.stage(f"shade_bounce{b}" if last
+                             else f"raygen_bounce{b}"):
+                if b == 0:
+                    throughput = torch.ones((R, 3), dtype=torch.float32,
+                                            device=dev)
+                    radiance = torch.zeros((R, 3), dtype=torch.float32,
+                                           device=dev)
+                    alive = cur_tri >= 0
+                    # Sky term for primary misses.
+                    radiance = radiance + torch.where(alive[:, None], 0.0,
+                                                      0.05)
+                mat = self.mat_ids[cur_tri.clamp(min=0).long()]
+                emis = self.mat_emissive[mat]
+                diff = self.mat_diffuse[mat]
+                radiance = radiance + torch.where(alive[:, None],
+                                                  throughput * emis, 0.0)
+                throughput = throughput * torch.where(alive[:, None], diff,
+                                                      0.0)
+                if last:
+                    break
+                words, sub = rng.split_words(words)
+                cur, key = raygen.secondary_rays(
+                    sub, cur, cur_tri, cur_t, self.geom_normals, 1,
+                    self.secondary_length("diffuse"), self.eps,
+                    self.scene_lo, self.scene_hi, direction_major=True)
+                nb = cur
+                if cfg.sort_secondary:
+                    with timing.span("ntrace.sort"):
+                        nb = sort_by_key(cur, key)
             with timer.stage(f"trace_bounce{b}"):
-                btri, bt, _, _ = self._trace_secondary(nb, False)
+                btri, bt, _, _ = self._trace_secondary(
+                    nb, False,
+                    live=lambda n: timer.count(f"live_bounce{b}", n))
             timer.count(f"rays_bounce{b}", R)
-            if cfg.sort_secondary:
-                btri = unsort(btri, nb.slot_to_id)
-                bt = unsort(bt, nb.slot_to_id)
-            cur_orig, cur_dirn = o, d
-            # Ambient sky for bounce misses.
-            sky = (btri < 0) & alive
-            radiance = radiance + torch.where(sky[:, None],
-                                              throughput * 0.8, 0.0)
-            alive = alive & (btri >= 0)
-            cur_tri, cur_t = btri, bt
-        return radiance
+            with timer.stage(f"shade_bounce{b}"):
+                if cfg.sort_secondary:
+                    btri = unsort(btri, nb.slot_to_id)
+                    bt = unsort(bt, nb.slot_to_id)
+                # Ambient sky for bounce misses.
+                sky = (btri < 0) & alive
+                radiance = radiance + torch.where(sky[:, None],
+                                                  throughput * 0.8, 0.0)
+                alive = alive & (btri >= 0)
+                cur_tri, cur_t = btri, bt
+        return radiance, cur_tri

@@ -41,8 +41,8 @@ from ntrace_tpu.render.renderer import Renderer as JaxRenderer
 from ntrace_tpu.scenes import default_camera, get_scene
 from ntrace_tpu_torch.ray import raygen, rng
 from ntrace_tpu_torch.ray.raybatch import (DEAD_KEY, RayBatch,
-                                           morton_sort_key, morton_sort_rays,
-                                           sort_by_key, unsort)
+                                           morton_sort_key, sort_by_key,
+                                           unsort)
 from ntrace_tpu_torch.render import renderer as port
 from ntrace_tpu_torch.render.renderer import Renderer, build_accel
 from ntrace_tpu_torch.utils import timing
@@ -85,15 +85,16 @@ def test_jax_threefry_is_partitionable():
 @pytest.mark.parametrize("seed", [0, 7, 123456789, -5])
 def test_rng_bit_exact_against_jax(seed):
     assert jax.config.jax_threefry_partitionable is True
-    key, tkey = jax.random.PRNGKey(seed), rng.prng_key(seed, "cpu")
-    np.testing.assert_array_equal(_u32(key), tkey.numpy())
-    for num in (2, 3):
-        np.testing.assert_array_equal(_u32(jax.random.split(key, num)),
-                                      rng.split(tkey, num).numpy())
-    sub, tsub = jax.random.split(key)[1], rng.split(tkey)[1]
+    key, words = jax.random.PRNGKey(seed), rng.key_words(seed)
+    np.testing.assert_array_equal(_u32(key), words)
+    split = rng.split_words(words)
+    np.testing.assert_array_equal(_u32(jax.random.split(key)), split)
+    # jax's split into three starts with the split into two
+    np.testing.assert_array_equal(_u32(jax.random.split(key, 3))[:2], split)
+    sub, tsub = jax.random.split(key)[1], split[1]
     for shape in ((5,), (4, 3, 2), (1000, 2)):
         want = np.asarray(jax.random.uniform(sub, shape, dtype=jnp.float32))
-        got = rng.uniform(tsub, shape).numpy()
+        got = rng.uniform(tsub, shape, "cpu").numpy()
         assert got.dtype == np.float32 and got.shape == want.shape
         np.testing.assert_array_equal(got.view(np.int32),
                                       want.view(np.int32))
@@ -102,12 +103,15 @@ def test_rng_bit_exact_against_jax(seed):
 @pytest.mark.parametrize("seed", [-2 ** 31, -2 ** 31 + 1, -1, 0, 1,
                                   2 ** 31 - 2, 2 ** 31 - 1])
 def test_key_words_equal_the_uploaded_key(seed):
+    """key_words(seed) is the key jax.random.PRNGKey(seed) puts on its
+    device, and random_bits32 of those words jax.random.bits of it."""
     words = rng.key_words(seed)
-    assert words == tuple(int(w) for w in timing.read(rng.prng_key(seed,
-                                                                   "cpu")))
+    key = jax.random.PRNGKey(seed)
+    assert words == tuple(int(w) for w in _u32(key))
     assert all(0 <= w < 2 ** 32 for w in words)
-    bits = rng.random_bits32(rng.prng_key(seed, "cpu"), (5, 2))
-    assert torch.equal(rng.random_bits32(words, (5, 2), "cpu"), bits)
+    bits = _u32(jax.random.bits(key, (5, 2), dtype=jnp.uint32))
+    np.testing.assert_array_equal(rng.random_bits32(words, (5, 2),
+                                                    "cpu").numpy(), bits)
     for bad in (-2 ** 31 - 1, 2 ** 31):
         with pytest.raises(ValueError, match="int32 range"):
             rng.key_words(bad)
@@ -119,7 +123,7 @@ def test_cosine_hemisphere_matches_jax():
     key = jax.random.PRNGKey(3)
     want = np.asarray(jax_raygen.cosine_hemisphere(key, jnp.asarray(n),
                                                    (300,)))
-    got = raygen.cosine_hemisphere(rng.prng_key(3, "cpu"),
+    got = raygen.cosine_hemisphere(rng.key_words(3),
                                    torch.from_numpy(n), (300,)).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=2e-6)
     # unit length, in the normal's hemisphere
@@ -144,7 +148,7 @@ def test_shadow_and_ao_match_jax():
                            (raygen.diffuse, jax_raygen.diffuse, 123.4)):
         j = jgen(key, jnp.asarray(hit_pos), jnp.asarray(normal), 3,
                  jnp.float32(arg), eps)
-        g = gen(rng.prng_key(11, "cpu"), torch.from_numpy(hit_pos),
+        g = gen(rng.key_words(11), torch.from_numpy(hit_pos),
                 torch.from_numpy(normal), 3, arg, float(eps))
         assert g.num_rays == 3 * r
         _close_batches(g, j)
@@ -162,7 +166,8 @@ def _close_batches(g: RayBatch, j):
 
 
 def _sort_by_key(batch, lo, hi, direction_major):
-    """morton_sort_rays's key, then raybatch.sort_by_key."""
+    """The reference's morton_sort_rays as the port sorts: morton_sort_key
+    with DEAD_KEY on dead rays, then raybatch.sort_by_key."""
     key = morton_sort_key(batch.orig, batch.dirn, lo, hi,
                           direction_major=direction_major)
     return sort_by_key(batch, torch.where(batch.tmax <= batch.tmin, DEAD_KEY,
@@ -170,8 +175,6 @@ def _sort_by_key(batch, lo, hi, direction_major):
 
 
 @pytest.mark.parametrize("direction_major,sort", [
-    pytest.param(True, morton_sort_rays, id="True"),
-    pytest.param(False, morton_sort_rays, id="False"),
     pytest.param(True, _sort_by_key, id="True-sort_by_key"),
     pytest.param(False, _sort_by_key, id="False-sort_by_key")])
 def test_morton_sort_rays_identical_permutation(direction_major, sort):

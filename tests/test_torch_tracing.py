@@ -45,8 +45,10 @@ STAGES = {
            "trace_ao", "shade", "readback"],
     "diffuse": ["raygen", "prepare_primary", "trace_primary",
                 "raygen_diffuse", "trace_diffuse", "shade", "readback"],
-    "path": ["raygen", "prepare_primary", "trace_primary", "trace_bounce0",
-             "trace_bounce1", "shade", "readback"],
+    "path": ["raygen", "prepare_primary", "trace_primary", "raygen_bounce0",
+             "trace_bounce0", "shade_bounce0", "raygen_bounce1",
+             "trace_bounce1", "shade_bounce1", "shade_bounce2", "shade",
+             "readback"],
 }
 PASSES = {"primary": [], "shadow": ["shadow"], "ao": ["ao"],
           "diffuse": ["diffuse"], "path": ["bounce0", "bounce1"]}
@@ -116,7 +118,8 @@ def test_traced_render_times_every_stage(conference, mode, monkeypatch):
         st = r.render(default_camera("conference")).stats
     assert not timing.tracing_on()
     stages = STAGES[mode]
-    times = {k for k in st if not k.startswith("rays_")} - COUNTERS
+    times = {k for k in st
+             if not k.startswith(("rays_", "live_"))} - COUNTERS
     assert times == set(stages) | {f"host_{s}" for s in stages}
     for s in stages:
         assert 0 <= st[f"host_{s}"] <= st[s]
@@ -124,6 +127,56 @@ def test_traced_render_times_every_stage(conference, mode, monkeypatch):
     assert calls["sync"] == 2 * len(stages)
     for p in ["primary"] + PASSES[mode]:
         assert st[f"rays_{p}"] > 0
+    # Path mode alone counts each bounce's live rays: here W x H, under
+    # the 8,192 rays from which _compact_trace reads them, so the batch's.
+    lives = {k: v for k, v in st.items() if k.startswith("live_")}
+    assert lives == ({f"live_{p}": W * H for p in PASSES[mode]}
+                     if mode == "path" else {})
+
+
+def test_untraced_path_frame_neither_syncs_nor_reads_more(conference,
+                                                          monkeypatch):
+    """Tracing off, a path frame big enough to compact its bounces (128 x
+    96: 12,288 rays) synchronises nothing, opens no range, and makes the
+    copies its size gives (its one read a bounce is the live prefix's):
+    the counters live_bounce<b> take the live rays _compact_trace reads
+    already. The first bounce's live rays are the primary hits; a bounce
+    never has more live rays than the one before."""
+    r = _renderer(conference, "path", width=2 * W, height=2 * H)
+    calls = _counted(monkeypatch)
+    res = r.render(default_camera("conference"))
+    assert calls == {"sync": 0, "ranges": []}
+    st = res.stats
+    passes = PASSES["path"]
+    assert set(st) == ({"rays_primary"} | {f"rays_{p}" for p in passes}
+                       | {f"live_{p}" for p in passes} | COUNTERS)
+    assert (st["copies"], st["copy_bytes"]) == _frame_copies(
+        "path", 2 * W, 2 * H, SAMPLES, r.cfg.bounces)
+    assert st["live_bounce0"] == int((res.hit_tri >= 0).sum())
+    assert 0 < st["live_bounce1"] <= st["live_bounce0"] <= 4 * W * H
+
+
+def test_path_ranges_nest_under_the_profiler(conference):
+    """A compacted path frame under torch.profiler: each bounce's stages
+    under ntrace.render, its Morton sort inside raygen_bounce<b> and its
+    compaction inside trace_bounce<b>."""
+    r = _renderer(conference, "path", width=2 * W, height=2 * H)
+    r.render(default_camera("conference"))
+    with profile(activities=[ProfilerActivity.CPU]) as p:
+        r.render(default_camera("conference"))
+    parents = {}
+    for e in p.events():
+        if e.name.startswith("ntrace."):
+            parents.setdefault(e.name, set()).add(
+                e.cpu_parent.name if e.cpu_parent else None)
+    want = {"ntrace.render": {None},
+            **{f"ntrace.{s}": {"ntrace.render"} for s in STAGES["path"]},
+            "ntrace.sort": {"ntrace.raygen_bounce0",
+                            "ntrace.raygen_bounce1"},
+            "ntrace.compact": {"ntrace.trace_bounce0",
+                               "ntrace.trace_bounce1"},
+            "ntrace.compact.live_read": {"ntrace.compact"}}
+    assert parents == want
 
 
 def test_ranges_nest_under_the_profiler(conference, monkeypatch):
@@ -204,27 +257,22 @@ def test_later_frames_equal_a_fresh_renderers_first(conference, mode):
 def _frame_copies(mode, W, H, samples, bounces=2, resident=False):
     """(copies, bytes) of one frame, from its size: uploads of the 8 camera
     fields (4 vectors of 3 float32, 4 scalars), the pixel order (int32 a
-    pixel; on the first frame of a size only, not where `resident`), for
-    path mode the random key (2 int64; AO and diffuse rays take its words
-    as kernel arguments) and, for shadow rays, the light (3 float32);
-    reads of the image (3 float32 a pixel), the two hit arrays (int32,
-    float32), the key of each random draw of path mode and the live-prefix
-    read (2 int64) of each compacted pass."""
+    pixel; on the first frame of a size only, not where `resident`) and,
+    for shadow rays, the light (3 float32); reads of the image (3 float32
+    a pixel), the two hit arrays (int32, float32) and the live-prefix
+    read (2 int64) of each compacted pass. AO, diffuse and path rays draw
+    from the seed's host key words: no copy."""
     n = W * H
     copies, nbytes = 8 + 1 + 3, 4 * 12 + 4 * 4 + 4 * n + 20 * n
     if resident:
         copies, nbytes = copies - 1, nbytes - 4 * n
     if mode == "shadow":
         copies, nbytes = copies + 1, nbytes + 12
-    if mode == "path":
-        copies, nbytes = copies + 1, nbytes + 16
     if mode in ("ao", "diffuse"):
-        draws, compacted = 0, n * samples > 8192
-    elif mode == "path":
-        draws, compacted = 2 * bounces, n > 8192   # a split and a draw
+        compacted = n * samples > 8192
     else:
-        draws, compacted = 0, False
-    reads = draws + (len(PASSES[mode]) if compacted else 0)
+        compacted = mode == "path" and n > 8192
+    reads = len(PASSES[mode]) if compacted else 0
     return copies + reads, nbytes + 16 * reads
 
 
