@@ -244,13 +244,12 @@ class RenderConfig:
     #                            prepass packets are incoherent and traversal
     #                            is not tmax-bound) -- kept as an exact,
     #                            tested option: "on" | "auto" (packet) | "off"
-    compact_rays: str = "auto"  # between-pass live-ray compaction: after
-    #                            the secondary-ray Morton sort puts dead
-    #                            rays last, trace only the live prefix
-    #                            (render/renderer.py _compact_trace --
-    #                            the reference's kepler_dynamic_fetch
-    #                            capability at shape level).
-    #                            "on" | "off" | "auto" (live < 3/4)
+    compact_rays: str = "auto"  # the reference's between-pass live-ray
+    #                            compaction: "on" | "off" | "auto",
+    #                            checked, selects no route. Every engine
+    #                            ends a dead ray at once, so a secondary
+    #                            pass traces its whole batch
+    #                            (render/renderer.py _compact_trace).
     merge_sibs: bool = False  # packet_bdl: coalesce contiguous sibling
     #                            leaf runs into one enqueue (OR'd per-row
     #                            wants; superset drains stay exact). Also

@@ -125,47 +125,22 @@ def _trace_batched(tracer, batch: RayBatch, cap: int, any_hit: bool):
 
 
 def _compact_trace(tracer, batch: RayBatch, cap: int, any_hit: bool,
-                   compact: str = "auto", live=None):
-    """Trace only the live prefix of a batch whose dead rays are at the end
-    (after a Morton sort); the rest get the miss sentinel tri -1, t 0,
-    u 0, v 0.
+                   compact: str = "auto"):
+    """The reference's live-prefix trace of a batch whose dead rays sort
+    last: here the whole batch in one `_trace_batched`, with no host read.
 
-    The reference pads the prefix to a power of two to bound XLA
-    recompiles; the port traces the slots up to the last live ray, which
-    gives identical results (a dead ray traced is the same sentinel: its
-    tmax is 0). compact: "on", "off", or "auto" (when at most 3/4 of the
-    rays are live). live, where given, is called with the live rays that
-    the pass read, or with the batch's rays where it read none (compaction
-    off, or at most 8,192 rays).
+    Every engine ends a dead ray (tmax <= tmin, or NaN) before it loads a
+    node, and a packet with no live ray does not walk; a dead ray keeps the
+    miss record tri -1, t = tmax, u = v = 0, the reference's pad wherever
+    tmax is 0, as it is for every dead ray of a batch render() makes. So
+    the whole batch gives the prefix trace's answer on every slot, a live
+    ray sorted among the dead ones included. compact: "on", "off" or
+    "auto", checked; it selects no route.
     """
     if compact not in ("on", "off", "auto"):
         raise ValueError(f"compact_rays must be on, off or auto, not "
                          f"{compact!r}")
-    n = batch.num_rays
-    if compact == "off" or n <= 8192:
-        if live is not None:
-            live(n)
-        return _trace_batched(tracer, batch, cap, any_hit)
-    with timing.span("ntrace.compact"):
-        live_mask = batch.tmax > batch.tmin
-        slots = torch.arange(n, device=live_mask.device)
-        found = torch.stack([live_mask.sum(),
-                             torch.where(live_mask, slots, -1).max()])
-        with timing.span("ntrace.compact.live_read"):
-            n_live, last = timing.read(found).tolist()
-        if live is not None:
-            live(n_live)
-        # Dead rays sort last, but a live ray may share their key, so the
-        # prefix runs through the last live slot.
-        prefix = last + 1
-        if prefix < n and (compact == "on" or n_live <= (3 * n) // 4):
-            sub = RayBatch(batch.orig[:prefix], batch.dirn[:prefix],
-                           batch.tmin[:prefix], batch.tmax[:prefix])
-            tri, t, u, v = _trace_batched(tracer, sub, cap, any_hit)
-            pad = n - prefix
-            return (torch.cat([tri, tri.new_full((pad,), -1)]),
-                    *(torch.cat([a, a.new_zeros((pad,))]) for a in (t, u, v)))
-        return _trace_batched(tracer, batch, cap, any_hit)
+    return _trace_batched(tracer, batch, cap, any_hit)
 
 
 class Renderer:
@@ -486,11 +461,13 @@ class Renderer:
 
     def _trace_secondary(self, batch: RayBatch, any_hit: bool, live=None):
         """One secondary pass through the BVH engine (the reference's
-        plain-tracer branch of `_secondary_tracer`): the live prefix of a
-        sorted batch, or the whole batch. seed_secondary and
-        stage_secondary "auto" resolve to off (the reference's auto needs
-        tuned.json entries); "on" is not ported yet. live: as in
-        _compact_trace (an unsorted batch reads none: its ray count)."""
+        plain-tracer branch of `_secondary_tracer`): the whole batch, sorted
+        or not, through _compact_trace, with no host read and no sync.
+        seed_secondary and stage_secondary "auto" resolve to off (the
+        reference's auto needs tuned.json entries); "on" is not ported yet.
+        live, where given, is called with the pass's live rays, (tmax >
+        tmin).sum() as a 0-d tensor on the batch's device, which it must
+        not read (render() hands it to StageTimer.count_on_device)."""
         for name in ("seed_secondary", "stage_secondary"):
             value = getattr(self.cfg, name)
             if value == "on":
@@ -500,20 +477,20 @@ class Renderer:
             if value not in ("auto", "off"):
                 raise ValueError(f"{name} must be on, off or auto, not "
                                  f"{value!r}")
-        if self.cfg.sort_secondary:   # dead rays are at the end
-            return _compact_trace(self.tracer.trace, batch, self._cap(),
-                                  any_hit, compact=self.cfg.compact_rays,
-                                  live=live)
         if live is not None:
-            live(batch.num_rays)
-        return _trace_batched(self.tracer.trace, batch, self._cap(), any_hit)
+            live((batch.tmax > batch.tmin).sum())
+        return _compact_trace(self.tracer.trace, batch, self._cap(), any_hit,
+                              compact=self.cfg.compact_rays)
 
     def render(self, camera: Camera, mode: str | None = None) -> RenderResult:
         """One frame, returned once its image and hits are on the host.
-        Its stats hold the ray counts of each pass (path mode also the
-        live rays of each bounce, live_bounce<b>), the frame's copies
-        between host and device (utils/timing.py: copies, copy_bytes,
-        pinned_reads: 3 a frame on a CUDA device, 0 on the CPU) and
+        Its stats hold the ray counts of each pass (rays_<pass>) and the
+        live rays of each AO, diffuse or path bounce pass (live_ao,
+        live_diffuse, live_bounce<b>: counted on the device, read with
+        the image), the frame's copies between host and device
+        (utils/timing.py: copies, copy_bytes, pinned_reads: on a CUDA
+        device 3 a primary or shadow frame and 4 a frame with live
+        counts, 0 on the CPU) and
         pixel_order_resident (0 on the first frame of a size, which
         uploads the pixel order; 1 after); while tracing is on, also each
         stage's wall and host milliseconds (<stage>, host_<stage>)."""
@@ -569,7 +546,10 @@ class Renderer:
                 sec, any_hit = self.gen_secondary(camera, mode, batch, tri,
                                                   t)
             with timer.stage(f"trace_{mode}"):
-                stri = self._trace_secondary(sec, any_hit)[0]
+                stri = self._trace_secondary(
+                    sec, any_hit,
+                    live=lambda n: timer.count_on_device(f"live_{mode}",
+                                                         n))[0]
             timer.count(f"rays_{mode}", sec.num_rays)
             if cfg.sort_secondary:
                 stri = unsort(stri, sec.slot_to_id)
@@ -588,7 +568,7 @@ class Renderer:
                              device=self.device)
             fb[batch.slot_to_id.long()] = color
         with timer.stage("readback"):
-            img, hit_tri, hit_t = timing.read_all(
+            img, hit_tri, hit_t = timer.read_all(
                 fb, unsort(tri, batch.slot_to_id),
                 unsort(t, batch.slot_to_id))
         return img.reshape(H, W, 3), hit_tri, hit_t, bounce_tri
@@ -619,8 +599,8 @@ class Renderer:
         the live mask); shade_bounce<bounces> holds the last hit's
         emission. A bounce ray is live where the ray before it hit, which
         is where its path is alive. Counters rays_bounce<b> and
-        live_bounce<b> (the live rays _compact_trace read, or the batch's
-        rays where it read none). Returns (radiance, the last hit of each
+        live_bounce<b> (the bounce's live rays, counted on the device and
+        read with the image). Returns (radiance, the last hit of each
         path), both in the batch's slot order."""
         cfg = self.cfg
         R = batch.num_rays
@@ -660,7 +640,8 @@ class Renderer:
             with timer.stage(f"trace_bounce{b}"):
                 btri, bt, _, _ = self._trace_secondary(
                     nb, False,
-                    live=lambda n: timer.count(f"live_bounce{b}", n))
+                    live=lambda n: timer.count_on_device(f"live_bounce{b}",
+                                                         n))
             timer.count(f"rays_bounce{b}", R)
             with timer.stage(f"shade_bounce{b}"):
                 if cfg.sort_secondary:

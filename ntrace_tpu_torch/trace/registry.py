@@ -164,11 +164,18 @@ def table_layout(engine: str, flat: FlatBVH) -> tuple[int, int]:
 
 
 def trace_golden(flat: FlatBVH, o, d, tn, tx, *, any_hit: bool, device):
-    """The host golden tracer on device tensors."""
-    rec = trace_cpu_golden(flat, *(a.cpu().numpy() for a in (o, d, tn, tx)),
+    """The host golden tracer on device tensors, over the live rays
+    (tmax > tmin) alone: a dead ray is not walked and keeps the kernels'
+    miss record (tri -1, t = tmax, u = v = 0)."""
+    o, d, tn, tx = (a.cpu().numpy() for a in (o, d, tn, tx))
+    live = tx > tn
+    rec = trace_cpu_golden(flat, o[live], d[live], tn[live], tx[live],
                            any_hit=any_hit)
-    return tuple(torch.from_numpy(a).to(device)
-                 for a in (rec.tri, rec.t, rec.u, rec.v))
+    out = [np.full(tx.shape, -1, np.int32), tx.astype(np.float32),
+           np.zeros(tx.shape, np.float32), np.zeros(tx.shape, np.float32)]
+    for a, got in zip(out, (rec.tri, rec.t, rec.u, rec.v)):
+        a[live] = got
+    return tuple(torch.from_numpy(a).to(device) for a in out)
 
 
 @dataclass

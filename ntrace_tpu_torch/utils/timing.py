@@ -14,7 +14,9 @@ device trace. No span but a stage synchronises.
 that a frame makes: they count `copies` and `copy_bytes` into the
 StageTimer whose `frame` is open, traced or not (on a CPU device the same
 sites count, though nothing crosses a bus); `read_all` also counts
-`pinned_reads`. `cuda_ms` times device work with CUDA events.
+`pinned_reads`. A counter held on the device (`StageTimer.count_on_device`)
+is read with the frame's last copies (`StageTimer.read_all`), never on
+its own. `cuda_ms` times device work with CUDA events.
 """
 
 from __future__ import annotations
@@ -70,6 +72,7 @@ class StageTimer:
         self.device = torch.device(device)
         self.stages: dict[str, float] = {}
         self.counts: dict[str, float] = {}
+        self.on_device: dict[str, torch.Tensor] = {}
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -106,6 +109,25 @@ class StageTimer:
 
     def count(self, name: str, n: float):
         self.counts[name] = self.counts.get(name, 0.0) + n
+
+    def count_on_device(self, name: str, n: torch.Tensor):
+        """Hold the 0-d device tensor `n` as the counter `name`, unread:
+        `read_all` brings it back and counts it."""
+        self.on_device[name] = n
+
+    def read_all(self, *ts: torch.Tensor) -> list[np.ndarray]:
+        """`read_all` of `ts` and, behind the same wait, the counts of
+        `count_on_device` stacked into one tensor (one copy more where
+        there are any), which it then counts. Returns the arrays of
+        `ts`."""
+        names = list(self.on_device)
+        if not names:
+            return read_all(*ts)
+        *outs, held = read_all(
+            *ts, torch.stack([self.on_device.pop(k) for k in names]))
+        for name, n in zip(names, held.tolist()):
+            self.count(name, n)
+        return outs
 
     def ms(self) -> dict[str, float]:
         return {**{k: v * 1e3 for k, v in self.stages.items()},

@@ -5,9 +5,9 @@ San Miguel stand-in at 59,952 triangles (shell, columns and leaves: all
 three materials), whose closed shell ends every path on a surface that
 emits nothing, so its frame is black; and the Fairy Forest stand-in,
 open to the sky, whose paths escape and carry the throughput of each
-bounce into the image. 128 x 96 pixels, sorted bounce rays: more than the
-8,192 rays from which _compact_trace compacts, so the compacted path and
-the live_bounce<b> counters run. A seeded subset of the pixels is
+bounce into the image. 128 x 96 pixels, sorted bounce rays (each bounce
+traced whole, its dead rays ended by the engine) and the live_bounce<b>
+counters, read with the image. A seeded subset of the pixels is
 re-derived by benchmark/lib/path.py from the scene alone and must agree
 within 1e-3 in every channel, primary triangles and the paths' last
 triangles (RenderResult.bounce_tri) equal. The reference with every

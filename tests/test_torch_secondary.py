@@ -1,6 +1,7 @@
 """The port's secondary-ray slice against the JAX reference (CPU): the
 threefry generator, the secondary ray generators, the Morton re-sort,
-gen_secondary, _compact_trace, and render() for shadow, ao, diffuse and
+gen_secondary, _compact_trace (the whole batch, whose dead rays give
+the reference's pad), and render() for shadow, ao, diffuse and
 path; `raygen.secondary_rays` on the CPU as its plain version
 `secondary_rays_ref`, and (on a CUDA device only) the kernel
 csrc/secondary_rays.cu against that plain version.
@@ -213,17 +214,24 @@ def test_unsort_restores_rows():
 
 def _fake_tracer(ns):
     """A tracer whose outputs are functions of the rays alone, for
-    _compact_trace on both sides."""
+    _compact_trace on both sides. It honours the kernels' dead-ray output:
+    a ray with tmax <= tmin gets tri -1, t = tmax, u = v = 0."""
     def tr(o, d, tn, tx, any_hit):
+        live = tx > tn
         tri = (tx * 1000).astype("int32") if ns is jnp else (
             tx * 1000).to(torch.int32)
-        return tri, tx + 1.0, o[:, 0] + any_hit, d[:, 1]
+        return (ns.where(live, tri, -1), ns.where(live, tx + 1.0, tx),
+                ns.where(live, o[:, 0] + any_hit, 0.0),
+                ns.where(live, d[:, 1], 0.0))
     return tr
 
 
 @pytest.mark.parametrize("compact", ["on", "off", "auto"])
 @pytest.mark.parametrize("live_frac", [0.3, 0.9])
 def test_compact_trace_matches_reference(compact, live_frac):
+    """The port traces the whole batch; with the kernels' dead-ray output
+    it equals the reference's prefix trace and pad on every slot, for
+    every `compact`."""
     rs = np.random.default_rng(9)
     n = 20000
     live = int(n * live_frac)
@@ -239,19 +247,18 @@ def test_compact_trace_matches_reference(compact, live_frac):
     batch = RayBatch(*(torch.from_numpy(a) for a in (orig, dirn, tmin, tmax)))
     got = port._compact_trace(_fake_tracer(torch), batch, 1 << 22, True,
                               compact=compact)
-    # Slots the reference traced are equal; the reference also traces the
-    # dead slots of its power-of-two pad, where the port writes the
-    # sentinel a trace of a dead ray (tmax 0) would give.
     for g, w in zip(got, want):
-        np.testing.assert_array_equal(g.numpy()[:live], np.asarray(w)[:live])
-    np.testing.assert_array_equal(got[0].numpy()[live:], 0 if compact ==
-                                  "off" or (compact == "auto"
-                                            and live_frac > 0.75) else -1)
+        g, w = g.numpy(), np.asarray(w)
+        assert g.dtype == w.dtype and g.tobytes() == w.tobytes()
+    with pytest.raises(ValueError, match="compact_rays"):
+        port._compact_trace(_fake_tracer(torch), batch, 1 << 22, True,
+                            compact=compact.upper())
 
 
 def test_compact_trace_keeps_a_live_ray_behind_dead_ones():
     """A live ray can share the dead rays' sort key (0x7FFFFFFF) and then
-    sort among them: the traced prefix runs through the last live slot."""
+    sort among them: the one trace takes the whole batch, and that ray
+    gets its hit."""
     n = 10000
     tmax = torch.zeros(n)
     tmax[:1000] = 1.0
@@ -262,12 +269,16 @@ def test_compact_trace_keeps_a_live_ray_behind_dead_ones():
 
     def tr(o, d, tn, tx, any_hit):
         calls.append(o.shape[0])
-        return (tx * 10).to(torch.int32), tx, tx, tx
+        live = tx > tn
+        return (torch.where(live, (tx * 10).to(torch.int32), -1), tx,
+                torch.where(live, tx, 0.0), torch.where(live, tx, 0.0))
 
     tri, t, _, _ = port._compact_trace(tr, batch, 1 << 22, False)
-    assert calls == [5001]
+    assert calls == [n]
     assert int(tri[5000]) == 20 and float(t[5000]) == 2.0
-    assert (tri[5001:] == -1).all() and (t[5001:] == 0).all()
+    assert (tri[:1000] == 10).all()
+    dead = tmax == 0
+    assert (tri[dead] == -1).all() and (t[dead] == 0).all()
 
 
 @pytest.fixture(scope="module")

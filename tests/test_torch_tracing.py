@@ -31,9 +31,8 @@ from ntrace_tpu_torch.render.renderer import Renderer, build_accel
 from ntrace_tpu_torch.utils import timing
 from ntrace_tpu_torch.utils.timing import StageTimer
 
-# 64 x 48 pixels at 4 samples: 12,288 secondary rays, more than the 8,192
-# under which _compact_trace traces a batch whole, so the live-prefix read
-# runs.
+# 64 x 48 pixels at 4 samples: 12,288 secondary rays a pass, each pass
+# traced whole with nothing read back.
 W, H, SAMPLES = 64, 48, 4
 BUILD = BuildConfig(builder="binned_sah", sah_tri_cost=0.02, max_leaf_size=48)
 STAGES = {
@@ -52,6 +51,9 @@ STAGES = {
 }
 PASSES = {"primary": [], "shadow": ["shadow"], "ao": ["ao"],
           "diffuse": ["diffuse"], "path": ["bounce0", "bounce1"]}
+# The passes through _trace_secondary, which count live_<pass>.
+LIVE = {"primary": [], "shadow": [], "ao": ["ao"], "diffuse": ["diffuse"],
+        "path": ["bounce0", "bounce1"]}
 COUNTERS = {"copies", "copy_bytes", "pinned_reads", "pixel_order_resident"}
 
 
@@ -106,7 +108,8 @@ def test_untraced_render_neither_syncs_nor_opens_ranges(conference, mode,
     assert not timing.tracing_on()
     res = r.render(default_camera("conference"))
     assert calls == {"sync": 0, "ranges": []}
-    assert set(res.stats) == {"rays_primary", f"rays_{mode}"} | COUNTERS
+    assert set(res.stats) == ({"rays_primary", f"rays_{mode}",
+                               f"live_{mode}"} | COUNTERS)
 
 
 @pytest.mark.parametrize("mode", sorted(STAGES))
@@ -115,8 +118,9 @@ def test_traced_render_times_every_stage(conference, mode, monkeypatch):
     calls = _counted(monkeypatch)
     with timing.tracing():
         assert timing.tracing_on()
-        st = r.render(default_camera("conference")).stats
+        res = r.render(default_camera("conference"))
     assert not timing.tracing_on()
+    st = res.stats
     stages = STAGES[mode]
     times = {k for k in st
              if not k.startswith(("rays_", "live_"))} - COUNTERS
@@ -127,20 +131,25 @@ def test_traced_render_times_every_stage(conference, mode, monkeypatch):
     assert calls["sync"] == 2 * len(stages)
     for p in ["primary"] + PASSES[mode]:
         assert st[f"rays_{p}"] > 0
-    # Path mode alone counts each bounce's live rays: here W x H, under
-    # the 8,192 rays from which _compact_trace reads them, so the batch's.
+    # Each pass through _trace_secondary counts its live rays on the
+    # device: AO and diffuse rays of the pixels that hit, and each bounce's
+    # rays whose path is alive.
     lives = {k: v for k, v in st.items() if k.startswith("live_")}
-    assert lives == ({f"live_{p}": W * H for p in PASSES[mode]}
-                     if mode == "path" else {})
+    assert set(lives) == {f"live_{p}" for p in LIVE[mode]}
+    hits = int((res.hit_tri >= 0).sum())
+    if mode in ("ao", "diffuse"):
+        assert lives[f"live_{mode}"] == SAMPLES * hits
+    if mode == "path":
+        assert lives["live_bounce0"] == hits
+        assert 0 < lives["live_bounce1"] <= hits
 
 
 def test_untraced_path_frame_neither_syncs_nor_reads_more(conference,
                                                           monkeypatch):
-    """Tracing off, a path frame big enough to compact its bounces (128 x
-    96: 12,288 rays) synchronises nothing, opens no range, and makes the
-    copies its size gives (its one read a bounce is the live prefix's):
-    the counters live_bounce<b> take the live rays _compact_trace reads
-    already. The first bounce's live rays are the primary hits; a bounce
+    """Tracing off, a path frame of 128 x 96 (12,288 rays a bounce)
+    synchronises nothing, opens no range, and makes the copies its size
+    gives: the counters live_bounce<b>, counted on the device, come back
+    in one copy with the image. The first bounce's live rays are the primary hits; a bounce
     never has more live rays than the one before."""
     r = _renderer(conference, "path", width=2 * W, height=2 * H)
     calls = _counted(monkeypatch)
@@ -157,9 +166,9 @@ def test_untraced_path_frame_neither_syncs_nor_reads_more(conference,
 
 
 def test_path_ranges_nest_under_the_profiler(conference):
-    """A compacted path frame under torch.profiler: each bounce's stages
-    under ntrace.render, its Morton sort inside raygen_bounce<b> and its
-    compaction inside trace_bounce<b>."""
+    """A path frame under torch.profiler: each bounce's stages under
+    ntrace.render and its Morton sort inside raygen_bounce<b>; no span
+    inside trace_bounce<b> (the pass reads nothing back)."""
     r = _renderer(conference, "path", width=2 * W, height=2 * H)
     r.render(default_camera("conference"))
     with profile(activities=[ProfilerActivity.CPU]) as p:
@@ -172,10 +181,7 @@ def test_path_ranges_nest_under_the_profiler(conference):
     want = {"ntrace.render": {None},
             **{f"ntrace.{s}": {"ntrace.render"} for s in STAGES["path"]},
             "ntrace.sort": {"ntrace.raygen_bounce0",
-                            "ntrace.raygen_bounce1"},
-            "ntrace.compact": {"ntrace.trace_bounce0",
-                               "ntrace.trace_bounce1"},
-            "ntrace.compact.live_read": {"ntrace.compact"}}
+                            "ntrace.raygen_bounce1"}}
     assert parents == want
 
 
@@ -195,9 +201,7 @@ def test_ranges_nest_under_the_profiler(conference, monkeypatch):
               for e in p.events() if e.name.startswith("ntrace.")}
     want = {"ntrace.render": None,
             **{f"ntrace.{s}": "ntrace.render" for s in STAGES["ao"]},
-            "ntrace.sort": "ntrace.raygen_ao",
-            "ntrace.compact": "ntrace.trace_ao",
-            "ntrace.compact.live_read": "ntrace.compact"}
+            "ntrace.sort": "ntrace.raygen_ao"}
     assert parent == want
 
 
@@ -259,21 +263,18 @@ def _frame_copies(mode, W, H, samples, bounces=2, resident=False):
     fields (4 vectors of 3 float32, 4 scalars), the pixel order (int32 a
     pixel; on the first frame of a size only, not where `resident`) and,
     for shadow rays, the light (3 float32); reads of the image (3 float32
-    a pixel), the two hit arrays (int32, float32) and the live-prefix
-    read (2 int64) of each compacted pass. AO, diffuse and path rays draw
-    from the seed's host key words: no copy."""
+    a pixel), the two hit arrays (int32, float32) and, where the frame
+    has AO, diffuse or bounce passes, their live counts in one read (an
+    int64 a pass). AO, diffuse and path rays draw from the seed's host key
+    words: no copy."""
     n = W * H
     copies, nbytes = 8 + 1 + 3, 4 * 12 + 4 * 4 + 4 * n + 20 * n
     if resident:
         copies, nbytes = copies - 1, nbytes - 4 * n
     if mode == "shadow":
         copies, nbytes = copies + 1, nbytes + 12
-    if mode in ("ao", "diffuse"):
-        compacted = n * samples > 8192
-    else:
-        compacted = mode == "path" and n > 8192
-    reads = len(PASSES[mode]) if compacted else 0
-    return copies + reads, nbytes + 16 * reads
+    passes = len(LIVE[mode])
+    return copies + int(passes > 0), nbytes + 8 * passes
 
 
 @pytest.mark.parametrize("mode", sorted(STAGES))
@@ -283,21 +284,21 @@ def test_copies_of_a_frame(conference, mode):
     want = _frame_copies(mode, W, H, SAMPLES, r.cfg.bounces)
     assert (st["copies"], st["copy_bytes"]) == want
     if mode in ("ao", "diffuse"):
-        assert want == (13, 20 * W * H + 4 * W * H + 64 + 16)
+        assert want == (13, 20 * W * H + 4 * W * H + 64 + 8)
 
 
 @pytest.mark.parametrize("cell", ["conference.diffuse_frame",
                                   "hairball.ao_frame"])
 def test_copies_of_a_benchmark_frame(cell):
     """The figures of a frame in the frame cells at 1024 x 768, 4 samples:
-    the first frame of the renderer 13 copies of 18,874,448 bytes, and
+    the first frame of the renderer 13 copies of 18,874,440 bytes, and
     every later one, which copies.frame and copy_mb.frame read in the
-    window, 12 copies of 15,728,720 bytes (the pixel order resident)."""
+    window, 12 copies of 15,728,712 bytes (the pixel order resident)."""
     wl = spec.workload(cell)
     rc = spec.config(wl["config"])["render"]
     size = (wl["mode"], rc["width"], rc["height"], rc["samples"])
-    assert _frame_copies(*size) == (13, 18_874_448)
-    assert _frame_copies(*size, resident=True) == (12, 15_728_720)
+    assert _frame_copies(*size) == (13, 18_874_440)
+    assert _frame_copies(*size, resident=True) == (12, 15_728_712)
 
 
 def test_copies_count_only_inside_a_frame():
@@ -356,9 +357,10 @@ def test_read_all_lands_in_pinned_memory_on_cuda():
 @pytest.mark.cuda
 def test_kept_image_survives_later_frames_on_cuda(conference):
     """An image kept from frame 1 is unchanged after 20 frames of other
-    cameras: each frame reads into blocks of its own. Every frame makes 3
-    pinned reads; the first uploads the pixel order, the rest take it
-    resident. The card's frames equal the CPU renderer's hits."""
+    cameras: each frame reads into blocks of its own. Every frame makes 4
+    pinned reads (the image, the two hits, the live count); the first
+    uploads the pixel order, the rest take it resident. The card's frames
+    equal the CPU renderer's hits."""
     dev = _cuda()
     r = _renderer(conference, "diffuse", device=dev)
     base = default_camera("conference")
@@ -368,10 +370,10 @@ def test_kept_image_survives_later_frames_on_cuda(conference):
     first = r.render(cams[0])
     kept = first.image.copy()
     assert (first.stats["pinned_reads"],
-            first.stats["pixel_order_resident"]) == (3, 0)
+            first.stats["pixel_order_resident"]) == (4, 0)
     for cam in cams[1:]:
         st = r.render(cam).stats
-        assert (st["pinned_reads"], st["pixel_order_resident"]) == (3, 1)
+        assert (st["pinned_reads"], st["pixel_order_resident"]) == (4, 1)
         assert st["copies"] == 12
     assert first.image.tobytes() == kept.tobytes()
     assert torch.from_numpy(first.image).is_pinned()
@@ -426,7 +428,7 @@ def test_reduction_leaves_program_spans_out_of_busy_time():
     events = [_event(prof.FRAME_SPAN, 0, 100),
               _event("ntrace.render", 1, 99),
               _event("ntrace.trace_ao", 10, 50),
-              _event("ntrace.compact.live_read", 12, 20),
+              _event("ntrace.launch.ntrace_packet_trace", 12, 20),
               _event("ntrace.render", 1, 99, device=True, annotation=True),
               _event("ntrace.trace_ao", 10, 50, device=True,
                      annotation=True),
@@ -437,4 +439,5 @@ def test_reduction_leaves_program_spans_out_of_busy_time():
     assert r["busy_s"] == pytest.approx((10 + 11 + 50) * 1e-6)
     assert set(r["by_name"]) == {"k1", "k2", "k3"}
     assert dict(r["idle_gaps"]) == pytest.approx(
-        {"ntrace.compact.live_read": 4e-6, "ntrace.trace_ao": 10e-6})
+        {"ntrace.launch.ntrace_packet_trace": 4e-6,
+         "ntrace.trace_ao": 10e-6})
