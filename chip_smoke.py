@@ -241,6 +241,10 @@ from ntrace_tpu_torch.trace.packet_wide import (WARP, trace_packet_wide,
 from ntrace_tpu_torch.trace.packet_ww import trace_packet_ww_ref
 from ntrace_tpu_torch.utils.timing import cuda_ms, tracing
 
+# The label of a render's stats in the logs: <stage> is the stage's span
+# on the device between its CUDA events, host_<stage>, host_wait and
+# host_frame host times (ms); the rest are counters.
+STATS = "stats (device spans by events, host_* host ms, counters)"
 KERNEL_SOURCE = "ntrace_tpu_torch/csrc/packet_trace.cu"
 KERNEL_REPLACES = "ntrace_tpu/trace/packet_pallas.py:99"
 DENSE_SOURCE = "ntrace_tpu_torch/csrc/dense_trace.cu"
@@ -475,7 +479,7 @@ def phase_main_path(device, n_tris=SCENE_TRIS, width=WIDTH, height=HEIGHT):
         raise AssertionError("image is all black")
     hit_rate = float((res.hit_tri >= 0).mean())
     log(f"[4] render: {launches} kernel launch(es), image {img.shape} "
-        f"mean {img.mean():.4f}, hit rate {hit_rate:.4f}, stages "
+        f"mean {img.mean():.4f}, hit rate {hit_rate:.4f}, {STATS} "
         + json.dumps({k: round(v, 3) for k, v in res.stats.items()}))
 
     # The same rays again, to hold the frame against the host oracles.
@@ -583,7 +587,7 @@ def profile_render(r, smi, tag="[5]"):
     camera = default_camera("conference")
     with tracing():
         warm = r.render(camera)
-    log(f"{tag} warm render() stages without profiler (ms) on {smi}: "
+    log(f"{tag} warm traced render() without profiler, {STATS}, on {smi}: "
         + json.dumps({k: round(v, 3) for k, v in warm.stats.items()}))
     profile_once(f"{tag} profile of one warm render()",
                  lambda: r.render(camera), smi)
@@ -655,7 +659,7 @@ def screen_render(rv, key, tag):
     log(f"{tag} render ({key}): counts "
         + json.dumps({k: v for k, v in counts.items() if v})
         + f", image mean {img.mean():.4f}, hit rate "
-        f"{(res.hit_tri >= 0).mean():.4f}, stages "
+        f"{(res.hit_tri >= 0).mean():.4f}, {STATS} "
         + json.dumps({k: round(v, 3) for k, v in res.stats.items()}))
     return res, counts[key]
 
@@ -948,7 +952,7 @@ def phase_lbvh_frame(r, batch):
         f"{rl.tables.num_nodes} nodes, tables {rl.tables.nbytes() / 1e6:.1f}"
         f" MB, image mean {img.mean():.4f}, hit rate "
         f"{(res.hit_tri >= 0).mean():.4f}, build {rl.timer.ms()['build']:.1f}"
-        " ms, stages "
+        f" ms, {STATS} "
         + json.dumps({k: round(v, 3) for k, v in res.stats.items()}))
     order, _ = pixel_table(W, H)
     check_oracles("[7]", r.scene, r.flat, res, batch, order)
@@ -1261,7 +1265,7 @@ def phase_secondary(r, smi):
                     r.cfg.height)
         log(f"[8] render({mode}): launches "
             + json.dumps({k: v for k, v in counts.items() if v})
-            + f", image mean {res.image.mean():.4f}, stages "
+            + f", image mean {res.image.mean():.4f}, {STATS} "
             + json.dumps({k: round(v, 3) for k, v in res.stats.items()}))
         for name, (rays, any_hit, hits) in list(passes.items())[1:]:
             check_pass(f"[8] {mode} pass {name}", r.scene, r.flat, rays,
@@ -1487,7 +1491,7 @@ def phase_variant_renders(r, secondary):
             log(f"[9] {name} render({mode}): {counts[name]} launches; "
                 f"{len(passes)} passes on phase 8's rays, closest hits "
                 "tri/t/u/v equal to the packet kernel's on every ray, any "
-                "hits tri>=0 equal; image bit-equal to phase 8's; stages "
+                f"hits tri>=0 equal; image bit-equal to phase 8's; {STATS} "
                 + json.dumps({k: round(v, 3) for k, v in res.stats.items()}))
     return launches
 
@@ -1699,7 +1703,7 @@ def phase_hairball_ao(device, hair, smi, width=WIDTH, height=HEIGHT):
         f"{work['tri_slot_tests'] / n:.2f} slot tests a ray); "
         f"tri>=0 equal to brute_force_anyhit on "
         f"{len(sub)} (blocked {blocked.mean():.4f}); image mean "
-        f"{res.image.mean():.4f}; stages "
+        f"{res.image.mean():.4f}; {STATS} "
         + json.dumps({k: round(v, 3) for k, v in st.items()}) + f" on {smi}")
     return counts
 
@@ -1876,7 +1880,7 @@ def phase_new_renders(r, secondary, names=tuple(NEW_ENGINES),
                 f"tri/t/u/v equal to the packet kernel's on every ray but "
                 f"{n_dec} decided by brute force, any hits tri>=0 equal; "
                 f"image bit-equal to the packet engine's but {px} pixels; "
-                "stages "
+                f"{STATS} "
                 + json.dumps({k: round(v, 3) for k, v in res.stats.items()}))
     return launches, renderers, decided
 
@@ -2793,7 +2797,7 @@ def phase_fairy(device, n_tris=FAIRY_TRIS, width=WIDTH, height=HEIGHT):
         if len(got) != 2:
             raise AssertionError(f"render({mode}) traced {len(got)} passes")
         log(f"[15] render({mode}): image mean {res.image.mean():.4f}, "
-            "stages " + json.dumps({k: round(v, 3)
+            f"{STATS} " + json.dumps({k: round(v, 3)
                                     for k, v in res.stats.items()}))
         names = ("primary", mode)
         for name, (rays, any_hit, hits) in zip(names, got):
@@ -2878,7 +2882,9 @@ def phase_fairy_timing(rh, flat, passes, smi):
                                         iters=10)
     with tracing():
         st = rh.update_positions(rest)
-    log("[15] update_positions traced: " + json.dumps(
+        # Its device spans resolve after the next frame's wait.
+        rh.render(default_camera("fairy"))
+    log(f"[15] update_positions traced, {STATS}: " + json.dumps(
         {k: round(v, 3) for k, v in st.items()}))
     log("[15] HLBVH build (ms, ms/Mtri): " + "; ".join(
         f"{k} {v:.3f} ({v / (n / 1e6):.3f})" for k, v in parts.items())

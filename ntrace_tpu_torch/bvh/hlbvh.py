@@ -227,7 +227,7 @@ def build_packed_read(args: tuple, cfg: BuildConfig, box: torch.Tensor,
     roots = ints[1:1 + ncl]
     rows = ints[1 + ccap:1 + ccap + ncl]
     boxes = got[9 + 2 * ccap:].reshape(ccap, 6)[:ncl]
-    with timer.stage(f"{stage}_top", span=f"ntrace.{stage}.top"):
+    with timer.stage(f"{stage}_top", label=f"ntrace.{stage}.top"):
         top = top_tree(boxes[:, :3], boxes[:, 3:], cfg)
     if (top.leaf_count != 1).any():
         return res

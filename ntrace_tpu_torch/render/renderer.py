@@ -331,8 +331,13 @@ class Renderer:
         rebuild_retries, rebuild_scan_launches, rebuild_box_launches,
         copies and copy_bytes (HLBVH adds rebuild_clusters,
         rebuild_top_nodes and rebuild_fallbacks), and while tracing is on
-        the stage times rebuild and host_rebuild (HLBVH adds rebuild_top
-        and host_rebuild_top, the top tree on the host)."""
+        the host times host_rebuild, host_wait (the read) and host_frame,
+        and the stage's device span rebuild (HLBVH adds rebuild_top and
+        host_rebuild_top, the top tree on the host). The call returns
+        before the device has passed the rebuild's end: on a CUDA device
+        the device spans enter the returned dict after the next wait of
+        the program, by the time the next render() has returned
+        (utils/timing.py)."""
         if self._indices is None:
             raise NotImplementedError(
                 "update_positions rebuilds the direct route only (builder "
@@ -484,16 +489,16 @@ class Renderer:
 
     def render(self, camera: Camera, mode: str | None = None) -> RenderResult:
         """One frame, returned once its image and hits are on the host.
-        Its stats hold the ray counts of each pass (rays_<pass>) and the
+        Its stats hold the ray counts of each pass (rays_<pass>), the
         live rays of each AO, diffuse or path bounce pass (live_ao,
         live_diffuse, live_bounce<b>: counted on the device, read with
-        the image), the frame's copies between host and device
-        (utils/timing.py: copies, copy_bytes, pinned_reads: on a CUDA
-        device 3 a primary or shadow frame and 4 a frame with live
-        counts, 0 on the CPU) and
-        pixel_order_resident (0 on the first frame of a size, which
-        uploads the pixel order; 1 after); while tracing is on, also each
-        stage's wall and host milliseconds (<stage>, host_<stage>)."""
+        the image) and the frame's copies between host and device
+        (utils/timing.py: copies, copy_bytes); while tracing is on, also
+        in milliseconds each stage's device span and host time (<stage>,
+        host_<stage>; every op of the frame lies in a stage), the host's
+        wait for the image (host_wait) and its time in the whole call
+        (host_frame). The spans of the frame, and of the build and
+        update_positions calls before it, resolve after its one wait."""
         mode = mode or self.cfg.mode
         if mode == "textured":
             raise NotImplementedError(
@@ -511,13 +516,16 @@ class Renderer:
 
     def _render(self, camera: Camera, mode: str, timer: timing.StageTimer):
         """One frame of render(): (image, hit_tri, hit_t) on the host and,
-        in path mode, the last hits (RenderResult.bounce_tri)."""
+        in path mode, the last hits (RenderResult.bounce_tri). Every op
+        lies in a stage: the camera's upload in raygen; the normal colour,
+        the secondary hits' unsort and the colour's composition in
+        shade."""
         cfg = self.cfg
         W, H = cfg.width, cfg.height
-        cam = raygen.camera_arrays(camera, W, H, self.device)
         with timer.stage("raygen"):
+            cam = raygen.camera_arrays(camera, W, H, self.device)
             batch = raygen.primary(cam, W, H,
-                                   self._pixel_order(W, H, timer))
+                                   self._pixel_order(W, H))
         with timer.stage("prepare_primary"):
             self.prepare_primary(cam, W, H)
         with timer.stage("trace_primary"):
@@ -527,21 +535,16 @@ class Renderer:
                                               batch.tmin, batch.tmax,
                                               cam=cam, canonical=True)
         timer.count("rays_primary", batch.num_rays)
-        base_col = normal_color(self.geom_normals, tri)
         bounce_tri = None
 
-        if mode == "primary":
-            color = base_col
-        elif mode == "shadow":
+        if mode == "shadow":
             with timer.stage("raygen_shadow"):
                 sbatch, _ = self.gen_secondary(camera, mode, batch, tri, t)
             with timer.stage("trace_shadow"):
                 stri = _trace_batched(self.tracer.trace, sbatch,
                                       self._cap(), True)[0]
             timer.count("rays_shadow", sbatch.num_rays)
-            color = shadow_mix(base_col, (stri < 0).to(torch.float32))
         elif mode in ("ao", "diffuse"):
-            S = cfg.samples
             with timer.stage(f"raygen_{mode}"):
                 sec, any_hit = self.gen_secondary(camera, mode, batch, tri,
                                                   t)
@@ -551,19 +554,26 @@ class Renderer:
                     live=lambda n: timer.count_on_device(f"live_{mode}",
                                                          n))[0]
             timer.count(f"rays_{mode}", sec.num_rays)
-            if cfg.sort_secondary:
-                stri = unsort(stri, sec.slot_to_id)
-            if mode == "ao":
-                vis = (stri < 0).to(torch.float32).reshape(-1, S).mean(dim=1)
-                color = base_col * vis[:, None]
-            else:
-                bounce = normal_color(self.geom_normals, stri).reshape(
-                    -1, S, 3).mean(dim=1)
-                color = base_col * 0.5 + bounce * 0.5
-        else:
+        elif mode == "path":
             color, bounce_tri = self._path_trace(rng.key_words(cfg.seed),
                                                  batch, tri, t, timer)
         with timer.stage("shade"):
+            if mode != "path":
+                color = base_col = normal_color(self.geom_normals, tri)
+            if mode == "shadow":
+                color = shadow_mix(base_col, (stri < 0).to(torch.float32))
+            elif mode in ("ao", "diffuse"):
+                S = cfg.samples
+                if cfg.sort_secondary:
+                    stri = unsort(stri, sec.slot_to_id)
+                if mode == "ao":
+                    vis = (stri < 0).to(torch.float32).reshape(-1, S).mean(
+                        dim=1)
+                    color = base_col * vis[:, None]
+                else:
+                    bounce = normal_color(self.geom_normals, stri).reshape(
+                        -1, S, 3).mean(dim=1)
+                    color = base_col * 0.5 + bounce * 0.5
             fb = torch.zeros((W * H, 3), dtype=torch.float32,
                              device=self.device)
             fb[batch.slot_to_id.long()] = color
@@ -573,12 +583,11 @@ class Renderer:
                 unsort(t, batch.slot_to_id))
         return img.reshape(H, W, 3), hit_tri, hit_t, bounce_tri
 
-    def _pixel_order(self, W: int, H: int, timer: timing.StageTimer):
+    def _pixel_order(self, W: int, H: int):
         """pixel_table(W, H)'s order, (W*H,) int32 on the device: uploaded
         on the first frame of the size (span ntrace.upload_pixels), the
         resident tensor after. Nothing may write into it."""
         order = self._pixel_orders.get((W, H))
-        timer.count("pixel_order_resident", int(order is not None))
         if order is None:
             with timing.span("ntrace.upload_pixels"):
                 order = timing.upload(pixel_table(W, H)[0].copy(),

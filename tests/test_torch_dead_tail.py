@@ -29,7 +29,8 @@ from ntrace_tpu_torch.ray.raybatch import RayBatch
 from ntrace_tpu_torch.render.renderer import Renderer, build_accel
 from ntrace_tpu_torch.trace import registry
 from ntrace_tpu_torch.utils import timing
-from ntrace_tpu_torch.utils.timing import StageTimer
+
+from torch_waits import counted_waits
 
 W, H, SAMPLES = 16, 12, 4     # 768 secondary rays a pass
 BUILD = BuildConfig(builder="binned_sah", sah_tri_cost=0.02, max_leaf_size=48)
@@ -153,10 +154,7 @@ def test_trace_secondary_reads_nothing_and_syncs_nothing(monkeypatch):
     for mod, name in ((timing, "read"), (timing, "read_all"),
                       (torch.Tensor, "tolist"), (torch.Tensor, "item")):
         monkeypatch.setattr(mod, name, counted("read", getattr(mod, name)))
-    monkeypatch.setattr(torch.cuda, "synchronize",
-                        counted("sync", torch.cuda.synchronize))
-    monkeypatch.setattr(StageTimer, "_sync",
-                        counted("sync", StageTimer._sync))
+    counted_waits(monkeypatch, calls)
     rs = np.random.default_rng(3)
     n, live = 20000, 6000
     tmax = torch.zeros(n)
@@ -194,7 +192,8 @@ def test_packet_kernel_whole_batch_is_the_prefix_and_pad_on_cuda(conference):
     packet kernel on the whole sorted AO and diffuse batch, dead tail and a
     live ray among the dead, gives the prefix trace and pad bit for bit,
     and its CPU twin the same. render() counts each pass's live rays and
-    reads them with the image: 4 pinned reads a frame."""
+    reads them with the image, which lands in page-locked memory with the
+    hits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the packet kernel)")
     dev = torch.device("cuda", 0)
@@ -210,4 +209,5 @@ def test_packet_kernel_whole_batch_is_the_prefix_and_pad_on_cuda(conference):
         res = r.render(default_camera("conference"))
         hits = int((res.hit_tri >= 0).sum())
         assert res.stats[f"live_{mode}"] == SAMPLES * hits
-        assert res.stats["pinned_reads"] == 4
+        assert all(torch.from_numpy(a).is_pinned()
+                   for a in (res.image, res.hit_tri, res.hit_t))

@@ -23,6 +23,7 @@ triangles.
 """
 
 import dataclasses
+from contextlib import nullcontext
 from types import SimpleNamespace
 
 import numpy as np
@@ -42,9 +43,9 @@ from ntrace_tpu_torch.host.scenes import make_single_triangle
 from ntrace_tpu_torch.render.renderer import Renderer, build_accel
 from ntrace_tpu_torch.tables import tree_form
 from ntrace_tpu_torch.utils import timing
-from ntrace_tpu_torch.utils.timing import StageTimer
 
 from conftest import random_rays
+from torch_waits import counted_waits
 
 W, H, SAMPLES = 64, 48, 4
 FAIRY = spec.config("fairy")
@@ -405,18 +406,15 @@ def test_one_read_and_one_upload(fairy):
 
 
 def _counted(monkeypatch):
-    calls = {"sync": 0, "ranges": []}
-    sync, real = StageTimer._sync, timing.record_function
-
-    def counted_sync(self):
-        calls["sync"] += 1
-        sync(self)
+    """Count the host's waits for the device (torch_waits.counted_waits) and
+    the profiler ranges the tracer opens."""
+    calls = counted_waits(monkeypatch, {"ranges": []})
+    real = timing.record_function
 
     def counted_range(name, args=None):
         calls["ranges"].append(name)
         return real(name, args)
 
-    monkeypatch.setattr(StageTimer, "_sync", counted_sync)
     monkeypatch.setattr(timing, "record_function", counted_range)
     return calls
 
@@ -438,11 +436,48 @@ def test_traced_rebuild_times_its_stages(fairy, monkeypatch):
     with timing.tracing():
         st = r.update_positions(torch.from_numpy(wind.pose(1)))
     assert set(st) == REBUILD_KEYS | {"rebuild", "host_rebuild",
-                                      "rebuild_top", "host_rebuild_top"}
-    assert 0 < st["rebuild_top"] <= st["rebuild"]
-    assert 0 <= st["host_rebuild_top"] <= st["rebuild_top"]
-    assert calls["sync"] == 4
+                                      "rebuild_top", "host_rebuild_top",
+                                      "host_wait", "host_frame"}
+    assert 0 < st["rebuild_top"] <= st["rebuild"] <= st["host_frame"]
+    assert 0 <= st["host_rebuild_top"] == st["rebuild_top"]
+    assert 0 <= st["host_wait"] <= st["host_rebuild"] == st["rebuild"]
+    # Inside tracing() alone no range opens; under a profiler they do.
+    assert calls == {"sync": 0, "ranges": []}
+    with profile(activities=[ProfilerActivity.CPU]):
+        r.update_positions(torch.from_numpy(wind.pose(1)))
+    assert calls["sync"] == 0
     assert calls["ranges"] == SPANS
+
+
+@pytest.mark.parametrize("device", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_traced_rebuild_waits_as_untraced(fairy, device, monkeypatch):
+    """A traced update_positions and render() wait for the device exactly
+    as often as untraced ones; the spans rebuild and rebuild_top, on the
+    card still pending when update_positions returns, are in its stats
+    once the next render() has returned, and the constructor's build and
+    build_top once the first has."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    scene, wind = fairy
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(
+        "cpu")
+    r = Renderer(scene, HLBVH, _cfg("ao"), device=dev)
+    r.render(CAMERA)
+    assert 0 <= r.timer.stages["build_top"] <= r.timer.stages["build"]
+    pose = torch.from_numpy(wind.pose(9)).to(dev)
+    waits = {}
+    for traced in (False, True):
+        calls = {}
+        with monkeypatch.context() as m:
+            counted_waits(m, calls)
+            with timing.tracing() if traced else nullcontext():
+                st = r.update_positions(pose)
+                r.render(CAMERA)
+        waits[traced] = calls["sync"]
+    assert waits[True] == waits[False]
+    assert 0 <= st["rebuild_top"] <= st["rebuild"]
+    assert st["host_wait"] <= st["host_frame"]
 
 
 def test_rebuild_spans_nest_under_the_profiler(fairy):

@@ -15,6 +15,7 @@ no range.
 """
 
 import dataclasses
+from contextlib import nullcontext
 from types import SimpleNamespace
 
 import numpy as np
@@ -30,7 +31,8 @@ from ntrace_tpu_torch.host import (BuildConfig, RenderConfig, Scene,
                                    get_scene)
 from ntrace_tpu_torch.render.renderer import Renderer
 from ntrace_tpu_torch.utils import timing
-from ntrace_tpu_torch.utils.timing import StageTimer
+
+from torch_waits import counted_waits
 
 W, H, SAMPLES = 64, 48, 4
 LBVH = BuildConfig(builder="lbvh", max_leaf_size=32)
@@ -247,20 +249,15 @@ def test_other_routes_are_refused(soup, builder, engine, given_flat):
 
 
 def _counted(monkeypatch):
-    """Count StageTimer's synchronisations and the profiler ranges the
-    tracer opens."""
-    calls = {"sync": 0, "ranges": []}
-    sync, real = StageTimer._sync, timing.record_function
-
-    def counted_sync(self):
-        calls["sync"] += 1
-        sync(self)
+    """Count the host's waits for the device (torch_waits.counted_waits) and
+    the profiler ranges the tracer opens."""
+    calls = counted_waits(monkeypatch, {"ranges": []})
+    real = timing.record_function
 
     def counted_range(name, args=None):
         calls["ranges"].append(name)
         return real(name, args)
 
-    monkeypatch.setattr(StageTimer, "_sync", counted_sync)
     monkeypatch.setattr(timing, "record_function", counted_range)
     return calls
 
@@ -280,12 +277,72 @@ def test_traced_rebuild_times_its_stage(soup, monkeypatch):
     calls = _counted(monkeypatch)
     with timing.tracing():
         st = r.update_positions(torch.from_numpy(soup.positions))
-    assert set(st) == REBUILD_KEYS | {"rebuild", "host_rebuild"}
-    assert 0 <= st["host_rebuild"] <= st["rebuild"]
-    assert calls["sync"] == 2
+    assert set(st) == REBUILD_KEYS | {"rebuild", "host_rebuild",
+                                      "host_wait", "host_frame"}
+    assert 0 <= st["host_wait"] <= st["host_rebuild"] == st["rebuild"]
+    assert st["rebuild"] <= st["host_frame"]
+    # Inside tracing() alone no range opens; under a profiler they do.
+    assert calls == {"sync": 0, "ranges": []}
+    with profile(activities=[ProfilerActivity.CPU]):
+        r.update_positions(torch.from_numpy(soup.positions))
+    assert calls["sync"] == 0
     assert calls["ranges"] == [
         "ntrace.update_positions", "ntrace.rebuild", "ntrace.rebuild.inputs",
         "ntrace.rebuild.lbvh", "ntrace.rebuild.node_count"]
+
+
+@pytest.mark.parametrize("device", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_traced_rebuild_waits_as_untraced(hair, device, monkeypatch):
+    """A traced update_positions and render() wait for the device exactly
+    as often as untraced ones; the rebuild's span, on the card still
+    pending when update_positions returns, is in its stats once the next
+    render() has returned, and the constructor's build once the first
+    has."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    scene, wind = hair
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(
+        "cpu")
+    r = Renderer(scene, LBVH, _cfg("ao"), device=dev)
+    r.render(CAMERA)
+    assert r.timer.stages["build"] >= 0
+    pose = torch.from_numpy(wind.pose(6)).to(dev)
+    waits = {}
+    for traced in (False, True):
+        calls = {}
+        with monkeypatch.context() as m:
+            counted_waits(m, calls)
+            with timing.tracing() if traced else nullcontext():
+                st = r.update_positions(pose)
+                res = r.render(CAMERA)
+        waits[traced] = calls["sync"]
+    assert waits[True] == waits[False]
+    assert st["rebuild"] >= 0 and st["host_wait"] <= st["host_frame"]
+    assert res.stats["host_wait"] <= res.stats["host_frame"]
+
+
+@pytest.mark.parametrize("device", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_rebuilds_without_frames_leave_nothing_pending(soup, device):
+    """100 untraced update_positions calls with no render() between add
+    no timer to the tracer's pending list; 10 traced ones keep it at one
+    more at most, each call's read resolving the calls before it."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(
+        "cpu")
+    r = Renderer(soup, LBVH, _cfg("primary"), device=dev)
+    pose = torch.from_numpy(soup.positions).to(dev)
+    r.update_positions(pose)
+    before = len(timing._pending)
+    for _ in range(100):
+        r.update_positions(pose)
+    assert len(timing._pending) == before
+    with timing.tracing():
+        for _ in range(10):
+            r.update_positions(pose)
+            assert len(timing._pending) <= before + 1
 
 
 def test_rebuild_spans_nest_under_the_profiler(soup):

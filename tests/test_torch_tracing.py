@@ -1,18 +1,24 @@
 """The port's tracer (ntrace_tpu_torch/utils/timing.py) on the CPU: off, a
 render() synchronises nothing, opens no profiler range and keeps only its
-counters; on, every stage has its wall and host time; under torch.profiler
-the program's ranges nest as render() opens them; the copies between host
-and device of a frame equal the figures derived from its size; the
-kernel-launch helper opens its range; and the benchmark's readers of the
-new spans and counters, and its reduction of a trace, read them right.
-The pixel order is uploaded once a size and stays read-only on the
-device; on a CUDA device the image and hits come back in page-locked
-memory (the `cuda`-marked tests, which skip without a card).
+counters; on, it still synchronises nothing, and every stage has its span
+and host time, the frame its host wait and host time; under
+torch.profiler the program's ranges nest as render() opens them and every
+aten op of a frame lies in a stage; the copies between host and device of
+a frame equal the figures derived from its size; the kernel-launch helper
+opens its range; and the benchmark's readers of the spans and counters,
+and its reduction of a trace, read them right. The pixel order is
+uploaded once a size and stays read-only on the device. The `cuda`-marked
+tests, which skip without a card: the image and hits come back in
+page-locked memory; a traced frame waits for the device no more often than
+an untraced one, its stages' device spans are sound, and a stage inside a
+CUDA graph capture records no event.
 """
 
 import dataclasses
 
 import math
+from contextlib import nullcontext
+from time import perf_counter
 from types import SimpleNamespace
 
 import numpy as np
@@ -23,6 +29,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from benchmark.lib import prof, spec
 from benchmark.lib.cell import Readings
+from ntrace_tpu_torch.bvh.lbvh import Graphed
 from ntrace_tpu_torch.host import (BuildConfig, RenderConfig, default_camera,
                                    get_scene)
 from ntrace_tpu_torch.kernels import build as kbuild
@@ -30,6 +37,8 @@ from ntrace_tpu_torch.ray.pixeltable import pixel_table
 from ntrace_tpu_torch.render.renderer import Renderer, build_accel
 from ntrace_tpu_torch.utils import timing
 from ntrace_tpu_torch.utils.timing import StageTimer
+
+from torch_waits import counted_waits
 
 # 64 x 48 pixels at 4 samples: 12,288 secondary rays a pass, each pass
 # traced whole with nothing read back.
@@ -54,7 +63,9 @@ PASSES = {"primary": [], "shadow": ["shadow"], "ao": ["ao"],
 # The passes through _trace_secondary, which count live_<pass>.
 LIVE = {"primary": [], "shadow": [], "ao": ["ao"], "diffuse": ["diffuse"],
         "path": ["bounce0", "bounce1"]}
-COUNTERS = {"copies", "copy_bytes", "pinned_reads", "pixel_order_resident"}
+COUNTERS = {"copies", "copy_bytes"}
+# The frame's host times while tracing is on (utils/timing.py).
+FRAME_TIMES = {"host_wait", "host_frame"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -81,21 +92,15 @@ def _renderer(conference, mode, width=W, height=H, device="cpu"):
 
 
 def _counted(monkeypatch):
-    """Count StageTimer's synchronisations and the profiler ranges the
-    tracer opens."""
-    calls = {"sync": 0, "ranges": []}
-    sync = StageTimer._sync
+    """Count the host's waits for the device (torch_waits.counted_waits) and
+    the profiler ranges the tracer opens."""
+    calls = counted_waits(monkeypatch, {"ranges": []})
     real = timing.record_function
-
-    def counted_sync(self):
-        calls["sync"] += 1
-        sync(self)
 
     def counted_range(name, args=None):
         calls["ranges"].append((name, args))
         return real(name, args)
 
-    monkeypatch.setattr(StageTimer, "_sync", counted_sync)
     monkeypatch.setattr(timing, "record_function", counted_range)
     return calls
 
@@ -110,6 +115,7 @@ def test_untraced_render_neither_syncs_nor_opens_ranges(conference, mode,
     assert calls == {"sync": 0, "ranges": []}
     assert set(res.stats) == ({"rays_primary", f"rays_{mode}",
                                f"live_{mode}"} | COUNTERS)
+    assert not torch.from_numpy(res.image).is_pinned()
 
 
 @pytest.mark.parametrize("mode", sorted(STAGES))
@@ -124,11 +130,16 @@ def test_traced_render_times_every_stage(conference, mode, monkeypatch):
     stages = STAGES[mode]
     times = {k for k in st
              if not k.startswith(("rays_", "live_"))} - COUNTERS
-    assert times == set(stages) | {f"host_{s}" for s in stages}
+    assert times == (set(stages) | {f"host_{s}" for s in stages}
+                     | FRAME_TIMES)
     for s in stages:
-        assert 0 <= st[f"host_{s}"] <= st[s]
+        # On the CPU a stage's span is its host time.
+        assert 0 <= st[f"host_{s}"] == st[s]
+    assert 0 <= st["host_wait"] <= st["host_readback"]
+    assert sum(st[s] for s in stages) <= st["host_frame"]
     assert not any(k.startswith("mrays_") for k in st)
-    assert calls["sync"] == 2 * len(stages)
+    # Inside tracing() alone no profiler range opens: none would record.
+    assert calls == {"sync": 0, "ranges": []}
     for p in ["primary"] + PASSES[mode]:
         assert st[f"rays_{p}"] > 0
     # Each pass through _trace_secondary counts its live rays on the
@@ -205,29 +216,66 @@ def test_ranges_nest_under_the_profiler(conference, monkeypatch):
     assert parent == want
 
 
+def _profiled_render(r, cam):
+    """(render(cam) of `r` under the profiler, whether it opened the span
+    ntrace.upload_pixels, under ntrace.raygen where it did)."""
+    with profile(activities=[ProfilerActivity.CPU]) as p:
+        res = r.render(cam)
+    parents = [e.cpu_parent.name for e in p.events()
+               if e.name == "ntrace.upload_pixels"]
+    assert parents in ([], ["ntrace.raygen"])
+    return res, bool(parents)
+
+
+@pytest.mark.parametrize("mode", sorted(STAGES))
+def test_every_op_of_a_frame_lies_in_a_stage(conference, mode):
+    """Under torch.profiler every aten op inside ntrace.render lies inside
+    one of the frame's stage ranges: the camera's upload, the normal
+    colour, the unsort and the colour's composition included."""
+    r = _renderer(conference, mode)
+    with profile(activities=[ProfilerActivity.CPU]) as p:
+        r.render(default_camera("conference"))
+    stages = {f"ntrace.{s}" for s in STAGES[mode]}
+    inside, outside = 0, []
+    for e in p.events():
+        if not e.name.startswith("aten::"):
+            continue
+        above, q = set(), e.cpu_parent
+        while q is not None:
+            above.add(q.name)
+            q = q.cpu_parent
+        if "ntrace.render" in above:
+            if above & stages:
+                inside += 1
+            else:
+                outside.append(e.name)
+    assert outside == [] and inside > 0
+
+
 def test_pixel_order_is_uploaded_once_a_size(conference):
     """The first frame of a renderer uploads the pixel order (13 copies,
-    pixel_order_resident 0, the span ntrace.upload_pixels under
-    ntrace.raygen); the second takes the resident one (12 copies, 4 bytes
-    a pixel fewer). A renderer of another size uploads its own."""
+    the span ntrace.upload_pixels under ntrace.raygen); the second takes
+    the resident one, the same tensor (12 copies, 4 bytes a pixel fewer,
+    no upload span). A renderer of another size uploads its own. On the
+    CPU the image comes back in pageable memory."""
     r = _renderer(conference, "ao")
     cam = default_camera("conference")
-    with profile(activities=[ProfilerActivity.CPU]) as p:
-        first = r.render(cam).stats
-    parent = {e.name: e.cpu_parent.name for e in p.events()
-              if e.name == "ntrace.upload_pixels"}
-    assert parent == {"ntrace.upload_pixels": "ntrace.raygen"}
-    second = r.render(cam).stats
-    assert (first["copies"], first["pixel_order_resident"]) == (13, 0)
-    assert (second["copies"], second["pixel_order_resident"]) == (12, 1)
-    assert first["copy_bytes"] - second["copy_bytes"] == 4 * W * H
-    assert first["pinned_reads"] == second["pinned_reads"] == 0
+    first, uploaded = _profiled_render(r, cam)
+    assert uploaded
+    order = r._pixel_orders[(W, H)]
+    second, uploaded = _profiled_render(r, cam)
+    assert not uploaded and r._pixel_orders[(W, H)] is order
+    assert first.stats["copies"] == 13 and second.stats["copies"] == 12
+    assert (first.stats["copy_bytes"] - second.stats["copy_bytes"]
+            == 4 * W * H)
+    for res in (first, second):
+        assert not torch.from_numpy(res.image).is_pinned()
     assert list(r._pixel_orders) == [(W, H)]
     other = _renderer(conference, "ao", width=32, height=24)
-    st = other.render(cam).stats
-    assert st["pixel_order_resident"] == 0
-    assert (st["copies"], st["copy_bytes"]) == _frame_copies("ao", 32, 24,
-                                                             SAMPLES)
+    res, uploaded = _profiled_render(other, cam)
+    assert uploaded
+    assert (res.stats["copies"], res.stats["copy_bytes"]) == _frame_copies(
+        "ao", 32, 24, SAMPLES)
     assert list(other._pixel_orders) == [(32, 24)]
 
 
@@ -321,7 +369,8 @@ def test_read_all_on_the_cpu_is_read():
     for a, t in zip(got, ts):
         assert a.dtype == timing.read(t).dtype
         assert np.array_equal(a, t.numpy())
-    assert timer.ms() == {"copies": 2, "copy_bytes": 32, "pinned_reads": 0}
+        assert not torch.from_numpy(a).is_pinned()
+    assert timer.ms() == {"copies": 2, "copy_bytes": 32}
 
 
 def _cuda():
@@ -350,17 +399,16 @@ def test_read_all_lands_in_pinned_memory_on_cuda():
         assert a.dtype == want.dtype and a.shape == want.shape
         assert a.tobytes() == want.tobytes()
         assert torch.from_numpy(a).is_pinned()
-    assert timer.ms() == {"copies": 3, "copy_bytes": 20 * 786_432,
-                          "pinned_reads": 3}
+    assert timer.ms() == {"copies": 3, "copy_bytes": 20 * 786_432}
 
 
 @pytest.mark.cuda
 def test_kept_image_survives_later_frames_on_cuda(conference):
     """An image kept from frame 1 is unchanged after 20 frames of other
-    cameras: each frame reads into blocks of its own. Every frame makes 4
-    pinned reads (the image, the two hits, the live count); the first
-    uploads the pixel order, the rest take it resident. The card's frames
-    equal the CPU renderer's hits."""
+    cameras: each frame reads into blocks of its own. Every frame's image
+    and hits land in page-locked memory; the first uploads the pixel
+    order (13 copies), the rest take the same tensor resident (12). The
+    card's frames equal the CPU renderer's hits."""
     dev = _cuda()
     r = _renderer(conference, "diffuse", device=dev)
     base = default_camera("conference")
@@ -369,12 +417,14 @@ def test_kept_image_survives_later_frames_on_cuda(conference):
             for k in range(21)]
     first = r.render(cams[0])
     kept = first.image.copy()
-    assert (first.stats["pinned_reads"],
-            first.stats["pixel_order_resident"]) == (4, 0)
+    order = r._pixel_orders[(W, H)]
+    assert first.stats["copies"] == 13
     for cam in cams[1:]:
-        st = r.render(cam).stats
-        assert (st["pinned_reads"], st["pixel_order_resident"]) == (4, 1)
-        assert st["copies"] == 12
+        res = r.render(cam)
+        assert res.stats["copies"] == 12
+        assert r._pixel_orders[(W, H)] is order
+        for a in (res.image, res.hit_tri, res.hit_t):
+            assert torch.from_numpy(a).is_pinned()
     assert first.image.tobytes() == kept.tobytes()
     assert torch.from_numpy(first.image).is_pinned()
     cpu = _renderer(conference, "diffuse").render(cams[0])
@@ -394,6 +444,33 @@ def test_launch_helper_opens_its_range(monkeypatch):
     with pytest.raises(RuntimeError, match="ntrace_fails failed: CUDA "
                                            "error 700"):
         kbuild.launch("ntrace_fails")
+
+
+def test_readers_of_the_host_split():
+    """host_wait_ms and host_issue_ms (both splits) read the mean
+    host_wait and host_frame - host_wait a frame, and nothing unless every
+    frame of the window records what they read, where the program records
+    neither (the parent's stats) or in a rays cell."""
+    stats = [{"host_frame": 5.0, "host_wait": 1.5, "raygen": 1.0,
+              "copies": 12},
+             {"host_frame": 7.0, "host_wait": 2.5, "raygen": 1.0,
+              "copies": 12}]
+    f = Readings(kind="frame", mode="ao", window_s=1.0, stats=stats)
+    old = Readings(kind="frame", mode="ao", window_s=1.0,
+                   stats=[{"raygen": 2.0, "host_raygen": 1.0,
+                           "copies": 12}])
+    half = Readings(kind="frame", mode="ao", window_s=1.0,
+                    stats=[stats[0], {"host_wait": 1.0}])
+    some = Readings(kind="frame", mode="ao", window_s=1.0,
+                    stats=[stats[0], {"raygen": 1.0}])
+    rays = Readings(kind="rays", window_s=1.0, live_rays=1e6)
+    for split in ("frame", "rebuild"):
+        wait = spec.reader(f"host_wait_ms.{split}")
+        issue = spec.reader(f"host_issue_ms.{split}")
+        assert wait(f) == 2.0 and issue(f) == 4.0
+        assert wait(half) == 1.25 and issue(half) is None
+        for r in (old, some, rays):
+            assert wait(r) is None and issue(r) is None
 
 
 def test_readers_of_the_new_metrics():
@@ -441,3 +518,102 @@ def test_reduction_leaves_program_spans_out_of_busy_time():
     assert dict(r["idle_gaps"]) == pytest.approx(
         {"ntrace.launch.ntrace_packet_trace": 4e-6,
          "ntrace.trace_ao": 10e-6})
+
+
+# A case on the CPU and one on the card (which skips without one).
+DEVICES = ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)]
+
+
+def _device(name):
+    return _cuda() if name == "cuda" else torch.device("cpu")
+
+
+@pytest.mark.parametrize("device", DEVICES)
+@pytest.mark.parametrize("mode", sorted(STAGES))
+def test_traced_frame_waits_as_untraced(conference, mode, device,
+                                        monkeypatch):
+    """A traced frame calls torch.cuda.synchronize, a stream's and an
+    event's synchronize exactly as often as an untraced one."""
+    dev = _device(device)
+    r = _renderer(conference, mode, device=dev)
+    cam = default_camera("conference")
+    r.render(cam)          # the size's first frame uploads the pixel order
+    waits = {}
+    for traced in (False, True):
+        calls = {}
+        with monkeypatch.context() as m:
+            counted_waits(m, calls)
+            with timing.tracing() if traced else nullcontext():
+                st = r.render(cam).stats
+        waits[traced] = calls["sync"]
+        assert ("host_frame" in st) == traced
+    assert waits[True] == waits[False]
+
+
+@pytest.mark.parametrize("device", DEVICES)
+@pytest.mark.parametrize("mode", sorted(STAGES))
+def test_stage_spans_fit_the_frame(conference, mode, device):
+    """Every stage's span is at least 0, and a traced frame's top-level
+    stages (on the card device spans, which tile its device timeline) sum
+    to no more than its wall; its host wait lies within its host time."""
+    dev = _device(device)
+    r = _renderer(conference, mode, device=dev)
+    cam = default_camera("conference")
+    r.render(cam)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = perf_counter()
+    with timing.tracing():
+        st = r.render(cam).stats
+    wall = (perf_counter() - t0) * 1e3
+    spans = [st[s] for s in STAGES[mode]]
+    assert min(spans) >= 0
+    assert sum(spans) <= wall
+    assert 0 <= st["host_wait"] <= st["host_frame"] <= wall
+    # After the frame's wait no timer stays pending. Its events, resolved
+    # at its exit, are spares that the next frame records on: one at the
+    # frame's entry and one at each stage's exit.
+    assert not timing._pending
+    if dev.type == "cuda":
+        pool = timing._spare[torch.cuda.current_device()]
+        spare = len(pool)
+        assert spare >= len(spans) + 1
+        with timing.tracing():
+            r.render(cam)
+        assert len(pool) == spare
+
+
+@pytest.mark.cuda
+def test_stage_in_a_graph_capture_records_no_event(monkeypatch):
+    """A stage opened while the current stream captures a CUDA graph
+    records no event (its span is its host time), and the capture replays
+    bit-equal to the eager call; the warm-up calls before the capture,
+    on a side stream, time by events that resolve."""
+    dev = _cuda()
+    recorded = []
+    real = torch.cuda.Event.record
+
+    def record(self, stream=None):
+        recorded.append(torch.cuda.is_current_stream_capturing())
+        return real(self, stream)
+
+    monkeypatch.setattr(torch.cuda.Event, "record", record)
+    timer = StageTimer(dev)
+
+    def fn(x):
+        with timer.stage("captured"):
+            return (x * 3 + 1).sqrt()
+
+    graph = Graphed(own_inputs=True)
+    x = torch.linspace(0, 7, 4096, device=dev)
+    with timing.tracing():
+        first = graph(fn, x).clone()
+    assert recorded and not any(recorded)
+    y = torch.linspace(1, 9, 4096, device=dev)
+    with timing.tracing():
+        again = graph(fn, y)
+    for got, src in ((first, x), (again, y)):
+        assert torch.equal(got, (src * 3 + 1).sqrt())
+    torch.cuda.synchronize(dev)
+    assert not timer.resolve()
+    assert timer.stages["captured"] >= 0 and "host_captured" in timer.stages
